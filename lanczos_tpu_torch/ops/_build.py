@@ -1,0 +1,115 @@
+"""Build and load the port's CUDA kernels.
+
+``csrc/stencil.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface and loaded with :mod:`ctypes` (no PyTorch
+headers, so the build takes seconds).  The build happens at first use, from
+the sources in this package only, into ``lanczos_tpu_torch/_build/``; the
+library's name carries a hash of the source and the flags, so an edited
+source is rebuilt and a stale library is never loaded.  Concurrent builds
+(several test processes on one card) serialise on an ``fcntl`` lock, which
+the kernel releases when its holder dies, so a crashed build leaves no stale
+lock behind.
+
+Nothing here runs at import: the CPU tests import every module, and a
+CPU-only host has no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import fcntl
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["BuildInfo", "nvcc_path", "load_stencil_library"]
+
+_PKG_DIR = Path(__file__).resolve().parents[1]
+_SOURCE = _PKG_DIR / "csrc" / "stencil.cu"
+BUILD_DIR = _PKG_DIR / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildInfo:
+    """Where the library is, and what its build took and printed."""
+
+    path: Path
+    seconds: float  # wall time of the nvcc run; 0.0 when it was already built
+    log: str  # nvcc's output, including ptxas' registers/spills per kernel
+    cached: bool
+
+
+def nvcc_path() -> str:
+    """``nvcc`` from ``CUDA_HOME``/``CUDA_PATH``, else ``PATH``, else the
+    toolkit's default install prefix."""
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(env)
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.is_file():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME): the CUDA stencil kernels are built "
+        "from lanczos_tpu_torch/csrc at first use on a CUDA tensor"
+    )
+
+
+def _build(source: Path, stem: str) -> BuildInfo:
+    digest = hashlib.sha256(
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    lib = BUILD_DIR / f"lib{stem}_{digest}.so"
+    log_path = lib.with_suffix(".log")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib.is_file():
+            log = log_path.read_text() if log_path.is_file() else ""
+            return BuildInfo(lib, 0.0, log, cached=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
+            )
+        log_path.write_text(log)
+        os.replace(tmp, lib)
+    return BuildInfo(lib, seconds, log, cached=False)
+
+
+@functools.lru_cache(maxsize=None)
+def load_stencil_library():
+    """(ctypes library, BuildInfo) for ``csrc/stencil.cu``; built once per
+    source version, loaded once per process."""
+    info = _build(_SOURCE, "stencil")
+    lib = ctypes.CDLL(str(info.path))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for dt in ("f32", "f64"):
+        spmv = getattr(lib, f"stencil_spmv_{dt}")
+        # x, diag, w, y, nz, ny, nx, offsets, k, stream
+        spmv.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr, i32, ptr]
+        spmv.restype = i32
+        spmm = getattr(lib, f"stencil_spmm_{dt}")
+        # x, diag, w, y, nz, ny, nx, b, offsets, k, stream
+        spmm.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, i32, ptr]
+        spmm.restype = i32
+    return lib, info

@@ -1,0 +1,126 @@
+"""User-facing eigensolver entry point: lanczos -> tridiag eigh -> Ritz -> accept.
+
+Counterpart of ``lanczos_tpu/solver/api.py`` for the single-vector path.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .._util import to_numpy
+from ..ops.operators import as_operator
+from .lanczos import lanczos
+from .results import EigResult, acceptance_inner_prod
+from .tridiag import cullum_willoughby_mask, ritz_from_factorization
+
+__all__ = ["eigsh"]
+
+
+def _select(theta, which: str, k: int):
+    theta_np = to_numpy(theta)
+    if which == "SA":  # smallest algebraic
+        order = np.argsort(theta_np)
+    elif which == "LA":  # largest algebraic
+        order = np.argsort(theta_np)[::-1]
+    elif which == "SM":  # smallest magnitude
+        order = np.argsort(np.abs(theta_np))
+    elif which == "LM":
+        order = np.argsort(np.abs(theta_np))[::-1]
+    else:
+        raise ValueError(f"unknown which={which!r}")
+    return order[:k]
+
+
+def eigsh(
+    A,
+    k: int = 6,
+    *,
+    n: Optional[int] = None,
+    which: str = "SA",
+    seed: int = 99,
+    v0=None,
+    reorth: str = "full",
+    reorth_passes: int = 2,
+    reorth_period: int = 5,
+    ghost_filter: Optional[bool] = None,
+    compute_acceptance: bool = True,
+    dtype=None,
+    compensated: bool = False,
+    block_size: int = 1,
+) -> EigResult:
+    """Find k extremal eigenpairs of a symmetric operator by Lanczos.
+
+    Parameters mirror scipy.sparse.linalg.eigsh where they overlap; ``A`` may
+    be a LinearOperator (solved on its device), a dense array or tensor, or
+    a scipy sparse matrix.
+
+    ``ghost_filter`` defaults to True when reorthogonalization is not "full"
+    (without full reorth, spurious copies of converged eigenvalues appear and
+    are filtered by the Cullum–Willoughby test).
+    """
+    if block_size > 1:
+        raise NotImplementedError(
+            "block_size > 1 (block Lanczos, solver/block.py) is not yet "
+            "ported (ROADMAP Queue 1 #11)"
+        )
+    op = as_operator(A)
+    m = op.shape[0]
+    if n is None:
+        n = min(m, max(2 * k + 20, 4 * k))
+    if k > n:
+        raise ValueError(f"k={k} cannot exceed Krylov depth n={n}")
+    if ghost_filter is None:
+        ghost_filter = reorth != "full"
+
+    fac = lanczos(
+        op, n, seed=seed, v0=v0, reorth=reorth, reorth_passes=reorth_passes,
+        reorth_period=reorth_period, dtype=dtype, compensated=compensated,
+    )
+    theta, X, resid_est = ritz_from_factorization(fac)
+    theta_np = to_numpy(theta)
+
+    keep = np.ones(fac.n, dtype=bool)
+    if ghost_filter:
+        keep = cullum_willoughby_mask(
+            to_numpy(fac.alpha), to_numpy(fac.beta), theta_np
+        )
+        # Without (full) reorthogonalization, converged Ritz values reappear
+        # as numerically identical copies.  Single-vector Lanczos cannot
+        # resolve true multiplicity anyway, so collapse each cluster to its
+        # best-residual representative.
+        resid_np = to_numpy(resid_est)
+        scale = max(float(np.max(np.abs(theta_np))), 1.0)
+        tol = 1e-8 * scale
+        rep = None  # index of current cluster's representative
+        for i in np.argsort(theta_np):
+            if not keep[i]:
+                continue
+            if rep is not None and theta_np[i] - theta_np[rep] < tol:
+                if resid_np[i] < resid_np[rep]:
+                    keep[rep] = False
+                    rep = i
+                else:
+                    keep[i] = False
+            else:
+                rep = i
+    kept_idx = np.nonzero(keep)[0]
+    sel = torch.as_tensor(
+        kept_idx[_select(theta_np[kept_idx], which, k)], device=theta.device
+    )
+
+    eigenvalues = theta[sel]
+    eigenvectors = X[:, sel]
+    residuals = resid_est[sel]
+    if compute_acceptance:
+        inner = acceptance_inner_prod(op, eigenvectors)
+    else:
+        inner = torch.full_like(eigenvalues, float("nan"))
+    return EigResult(
+        eigenvalues=eigenvalues,
+        eigenvectors=eigenvectors,
+        residuals=residuals,
+        inner_prod=inner,
+    )

@@ -1,0 +1,44 @@
+"""The port's ``solve-regular`` CLI, in process, against lanczos_tpu.eigsh."""
+
+import jax  # noqa: F401  (kept on the CPU by conftest)
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+import lanczos_tpu as lt  # noqa: E402
+
+from lanczos_tpu_torch.cli import main  # noqa: E402
+
+ARGS = ["solve-regular", "-N", "8", "-n", "512", "-k", "3", "--dtype", "float64", "--device", "cpu"]
+
+
+def test_solve_regular_matches_jax(capsys, tmp_path):
+    out_prefix = str(tmp_path / "pairs")
+    res = main(ARGS + ["--out", out_prefix])
+    text = capsys.readouterr().out
+    assert "# regular 8^3 grid, 27-pt stencil" in text and "on cpu" in text
+    assert "EIGENVALUE AND EIGENVECTOR SUMMARY" in text
+    assert text.count(" ok") == 3
+    # n = M = 512 is full Krylov depth, so the eigenvalues do not depend on
+    # the start vector: fp64 agreement to 1e-8.
+    H = lt.build_regular_hamiltonian(8, 25.0, lt.deuteron_potential_3d, stencil="27", dtype="float64")
+    ref = lt.eigsh(H, k=3, n=512, dtype=np.float64)
+    np.testing.assert_allclose(res.eigenvalues.numpy(), np.asarray(ref.eigenvalues), atol=1e-8, rtol=0)
+    vals = np.load(out_prefix + "_eigvals.npy")
+    vecs = np.load(out_prefix + "_eigvecs.npy")
+    assert vals.shape == (3,) and vecs.shape == (512, 3)
+
+
+@pytest.mark.parametrize("extra,queue_item", [(["--restart"], "#8"), (["--block-size", "2"], "#11")])
+def test_unported_solvers_exit_cleanly(extra, queue_item):
+    with pytest.raises(SystemExit, match=f"not yet ported .*Queue 1 {queue_item}"):
+        main(ARGS + extra)
+
+
+def test_cuda_device_without_card_fails_loudly():
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible; this checks hosts without one")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        main(["solve-regular", "-N", "4", "-n", "8", "-k", "2", "--device", "cuda"])

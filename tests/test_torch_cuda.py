@@ -1,0 +1,113 @@
+"""Card-only tests of the port: the CUDA stencil kernels and a small solve.
+
+They need an NVIDIA GPU and skip here otherwise (decided inside each test,
+so every pytest-xdist worker collects the same tests).  On a card:
+
+    python -m pytest tests/ -m cuda
+
+The file imports no jax, so with ``--noconftest`` it also runs where jax is
+not installed.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+import lanczos_tpu_torch as pt  # noqa: E402
+from lanczos_tpu_torch.ops import make_stencil_operator  # noqa: E402
+from lanczos_tpu_torch.ops import stencil_kernels as sk  # noqa: E402
+
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+def _require_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+
+
+def _operators(dtype):
+    """The shapes of tests/test_pallas.py, on the card."""
+    dev = "cuda"
+    reg = [
+        pt.build_regular_hamiltonian(
+            n, 25.0, pt.deuteron_potential_3d, stencil=s, dtype=dtype, device=dev
+        )
+        for n, s in ((12, "27"), (10, "7"), (8, "27"), (16, "27"))
+    ]
+    aniso = make_stencil_operator(
+        (6, 10, 14), [(0, 0, 0), (1, 0, 0), (0, -1, 0), (0, 0, 1), (-1, 1, -1)],
+        [2.0, -1.0, 0.5, 0.25, 1.5], dtype=dtype, device=dev,
+    )
+    flat = make_stencil_operator(
+        (8, 16, 8),
+        [(0, 0, 0), (0, 0, 1), (0, 0, -1), (0, 1, 0), (0, -1, 0), (1, 0, 0),
+         (-1, 0, 0), (1, 1, 1), (-1, -1, -1), (0, 1, -1)],
+        [1.0, 0.5, -0.5, 0.25, 2.0, -1.5, 3.0, 0.125, -0.25, 0.75],
+        diag=np.linspace(-1.0, 1.0, 8 * 16 * 8), dtype=dtype, device=dev,
+    )
+    return reg + [aniso, flat]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_kernels_match_reference(dtype):
+    _require_card()
+    # fp32: test_pallas.py's tolerance (another summation order, FMA);
+    # fp64: the same tap order, FMA contraction only.
+    atol_scale, rtol = (2e-5, 1e-4) if dtype == torch.float32 else (1e-12, 1e-12)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for op in _operators(dtype):
+        m = op.shape[0]
+        for b in (None, 3, 20):
+            shape = (m,) if b is None else (m, b)
+            x = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+            before = (sk.stencil_spmv.launches, sk.stencil_spmm.launches)
+            if b is None:
+                y, y_ref = sk.stencil_spmv(op, x), sk.stencil_spmv_reference(op, x)
+                assert sk.stencil_spmv.launches == before[0] + 1
+            else:
+                y, y_ref = sk.stencil_spmm(op, x), sk.stencil_spmm_reference(op, x)
+                assert sk.stencil_spmm.launches == before[1] + 1
+            torch.cuda.synchronize()
+            scale = float(y_ref.abs().max())
+            torch.testing.assert_close(y, y_ref, atol=atol_scale * scale, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_raises_instead_of_falling_back():
+    _require_card()
+    op = pt.build_regular_hamiltonian(6, 25.0, pt.deuteron_potential_3d, device="cuda")
+    with pytest.raises(ValueError):  # operand on the CPU, operator on the card
+        sk.stencil_spmv(op, torch.zeros(op.shape[0]))
+    with pytest.raises(ValueError):  # not contiguous
+        sk.stencil_spmm(op, torch.zeros(2, op.shape[0], device="cuda").T)
+
+
+@pytest.mark.cuda
+def test_cuda_eigsh_matches_cpu_fp64():
+    _require_card()
+    v0 = np.random.default_rng(4).uniform(-1, 1, 12**3)
+    H32 = pt.build_regular_hamiltonian(
+        12, 25.0, pt.deuteron_potential_3d, stencil="27", dtype=torch.float32, device="cuda"
+    )
+    H64 = pt.build_regular_hamiltonian(
+        12, 25.0, pt.deuteron_potential_3d, stencil="27", dtype=torch.float64
+    )
+    launches = sk.stencil_spmv.launches
+    r32 = pt.eigsh(H32, k=4, n=80, v0=v0)
+    assert sk.stencil_spmv.launches == launches + 80
+    r64 = pt.eigsh(H64, k=4, n=80, v0=v0)
+    # fp32 storage of H moves eigenvalues by <= eps32/2 * ||H||_G (Weyl); the
+    # fp32 SpMVs round by about as much again.
+    tol = EPS32 * (float(H64.weights.abs().sum()) + float(H64.diag.abs().max()))
+    # Only eigenvalues that fp64 has converged to within tol are fixed to
+    # tol; the grid's cubic symmetry makes degenerate multiplets, whose
+    # extra copies either run may or may not have converged, so each is
+    # matched to the nearest fp32 eigenvalue.
+    vals32 = r32.eigenvalues.double().cpu().numpy()
+    converged = r64.residuals.numpy() < tol
+    assert converged[0]
+    for lam in r64.eigenvalues.numpy()[converged]:
+        assert np.min(np.abs(vals32 - lam)) <= tol, (lam, vals32, tol)
