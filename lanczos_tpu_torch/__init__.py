@@ -3,10 +3,20 @@ CUDA kernels for the NVIDIA H100 (sm_90a).
 
 The port of ``lanczos_tpu`` (JAX/Pallas on a TPU), which stays beside it as
 the reference that every module here is tested against.  This package holds
-the regular-grid ``eigsh`` path: potentials -> regular-grid Hamiltonian ->
-matrix-free stencil operator (CUDA stencil SpMV/SpMM kernels) -> Lanczos
-with full reorthogonalization -> tridiagonal eigh, Ritz vectors and
-acceptance.  It imports ``torch`` and never ``jax``.
+two paths:
+
+* the regular grid: potentials -> regular-grid Hamiltonian -> matrix-free
+  stencil operator (CUDA stencil SpMV/SpMM kernels) -> ``eigsh`` (Lanczos
+  with full reorthogonalization -> tridiagonal eigh, Ritz vectors and
+  acceptance);
+* the irregular multi-resolution lattice: ``build_lattice`` -> least-squares
+  Laplacian rows -> ``assemble_irregular_hamiltonian_composite2`` (the
+  CompositeV2 operator: per-level stencil kernels plus the CUDA fused
+  interface kernel) or the padded-ELL assembly -> ``eigs_nonsym``
+  (Krylov–Schur) or, in float64, ``two_sided_lanczos``/``two_sided_eigs``.
+
+Constructors and builders allocate on ``"cuda"`` unless given ``device=``.
+It imports ``torch`` and never ``jax``.
 
 Importing it turns TF32 off for matmuls and cuDNN: a TF32 product keeps
 about three decimal digits and quietly degrades Krylov orthogonality (the
@@ -40,6 +50,15 @@ from .models.grids import (  # noqa: E402
     build_regular_hamiltonian,
     laplacian_stencil,
 )
+from .models.lattice import IrregularLattice, build_lattice, potential_spacings  # noqa: E402
+from .models.irrlap import laplacian_weights  # noqa: E402
+from .models.irr_hamiltonian import (  # noqa: E402
+    assemble_irregular_hamiltonian,
+    assemble_irregular_hamiltonian_composite2,
+)
+from .ops.composite2 import CompositeV2  # noqa: E402
+from .solver.arnoldi import arnoldi, eigs_nonsym  # noqa: E402
+from .solver.two_sided import two_sided_eigs, two_sided_lanczos  # noqa: E402
 from .models.potentials import (  # noqa: E402
     DEUTERON_REDUCED_REST_ENERGY_MEV,
     HBAR_C_MEV_FM,

@@ -1,11 +1,16 @@
-"""dtype and host-array conversions shared by the port's modules."""
+"""Device default, dtype and host-array conversions shared by the port's modules."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["as_torch_dtype", "as_numpy_dtype", "to_numpy"]
+__all__ = ["DEFAULT_DEVICE", "as_torch_dtype", "as_numpy_dtype", "to_numpy"]
+
+#: Where every constructor and builder of the port allocates unless the
+#: caller passes ``device=``.  On a host without a card a call that leaves
+#: ``device`` out raises from PyTorch; it never quietly builds CPU tensors.
+DEFAULT_DEVICE = "cuda"
 
 
 def as_torch_dtype(dtype) -> torch.dtype:

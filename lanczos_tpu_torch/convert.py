@@ -1,24 +1,31 @@
 """Carry objects of the JAX package across to the port.
 
 :func:`from_jax` turns a ``lanczos_tpu`` StencilOperator, EllOperator,
-DenseOperator or LanczosFactorization into the port's counterpart, so both
-packages can compute with identical operators and states.  It reads
-attributes through ``np.asarray`` and never imports ``jax`` itself.
+DenseOperator, CompositeV2 (with its fused-interface plan and transpose),
+InterfacePlan, IrregularLattice or LanczosFactorization into the port's
+counterpart, so both packages can compute with identical operators and
+states.  It reads attributes through ``np.asarray`` and never imports
+``jax`` itself.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from ._util import as_torch_dtype
+from ._util import DEFAULT_DEVICE, as_torch_dtype
+from .models.lattice import IrregularLattice
+from .ops.composite2 import CompositeV2
+from .ops.interface_kernel import FusedInterface, InterfacePlan
 from .ops.operators import DenseOperator, EllOperator, StencilOperator
 from .solver.lanczos import LanczosFactorization
 
 __all__ = ["from_jax"]
 
 
-def from_jax(obj, *, device="cpu", dtype=None):
+def from_jax(obj, *, device=DEFAULT_DEVICE, dtype=None):
     """The port's counterpart of a ``lanczos_tpu`` object, on ``device``.
 
     Floating arrays are converted to ``dtype`` (default: their own).
@@ -45,6 +52,37 @@ def from_jax(obj, *, device="cpu", dtype=None):
         return EllOperator(cols=t(obj.cols, torch.int64), vals=t(obj.vals))
     if kind == "DenseOperator":
         return DenseOperator(t(obj.A))
+    if kind == "InterfacePlan":
+        return InterfacePlan(
+            operands=obj.operands, out_operands=obj.out_operands,
+            classes=obj.classes, fallback=obj.fallback,
+        )
+    if kind == "IrregularLattice":
+        # Host numpy arrays on both sides: the fields carry over as they are.
+        return IrregularLattice(
+            **{f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+        )
+    if kind == "CompositeV2":
+        level_ops = [from_jax(op, device=device, dtype=dtype) for op in obj.level_ops]
+        op_dtype = level_ops[0].dtype
+        fused = None
+        if obj.fused_plan is not None:
+            fused = FusedInterface(
+                from_jax(obj.fused_plan), obj.level_meta, op_dtype, device
+            )
+        return CompositeV2(
+            diag=t(obj.diag), keep=t(obj.keep), live=t(obj.live),
+            level_ops=level_ops,
+            grid_w=[t(w) for w in obj.grid_w],
+            ifc_buckets=[
+                (t(r, torch.int64), t(i, torch.int64), t(w))
+                for r, i, w in obj.ifc_buckets
+            ],
+            level_meta=obj.level_meta, grid_meta=obj.grid_meta,
+            symmetric=obj.symmetric, fused=fused,
+            transpose_op=None if obj.transpose_op is None
+            else from_jax(obj.transpose_op, device=device, dtype=dtype),
+        )
     if kind == "LanczosFactorization":
         return LanczosFactorization(
             alpha=t(obj.alpha), beta=t(obj.beta), V=t(obj.V), resid=t(obj.resid),

@@ -19,7 +19,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .._util import as_torch_dtype, to_numpy
+from .._util import DEFAULT_DEVICE, as_torch_dtype, to_numpy
 from ..ops.assemble import ell_from_coo
 from ..ops.operators import EllOperator, StencilOperator, make_stencil_operator
 from .potentials import DEUTERON_REDUCED_REST_ENERGY_MEV, kinetic_prefactor
@@ -128,7 +128,7 @@ def build_regular_hamiltonian(
     rest_energy: float = DEUTERON_REDUCED_REST_ENERGY_MEV,
     t_factor: Optional[float] = None,
     dtype=torch.float32,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> StencilOperator:
     """H = -T + V as a matrix-free StencilOperator on ``device``.
 
@@ -166,7 +166,7 @@ def build_chain_hamiltonian_1d(
     rest_energy: float = DEUTERON_REDUCED_REST_ENERGY_MEV,
     t_factor: Optional[float] = None,
     dtype=torch.float64,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> EllOperator:
     """The reference's exact non-periodic 1D radial Hamiltonian as ELL.
 

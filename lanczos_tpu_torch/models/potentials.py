@@ -11,6 +11,8 @@ import dataclasses
 
 import torch
 
+from .._util import DEFAULT_DEVICE
+
 __all__ = [
     "HBAR_C_MEV_FM",
     "DEUTERON_REDUCED_REST_ENERGY_MEV",
@@ -70,7 +72,7 @@ def deuteron_potential_3d(x, y, z, params: DeuteronParams = _DEFAULT) -> torch.T
 
 
 def square_well_1d(
-    n: int, depth: float = -10.0, *, dtype=torch.float32, device="cpu"
+    n: int, depth: float = -10.0, *, dtype=torch.float32, device=DEFAULT_DEVICE
 ) -> torch.Tensor:
     """The 1D particle-in-a-box well: V = depth on the middle half, 0 outside."""
     v = torch.zeros(n, dtype=dtype, device=device)

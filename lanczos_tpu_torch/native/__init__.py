@@ -1,0 +1,121 @@
+"""The port's native (C++) lattice neighbor search, loaded with ctypes.
+
+Counterpart of ``lanczos_tpu/native`` for the neighbor search.  The port
+keeps its own copy of the C++ source (``neighbor_engine.cpp``) and builds it
+with the host C++ compiler at first use into ``lanczos_tpu_torch/_build/``
+(gitignored), keyed by a hash of the source and flags.  Builders serialise
+on an ``fcntl`` lock, as the CUDA kernels do (``ops/_build.py``).  This is
+host code, not a device kernel: when no compiler is present,
+``find_neighbors(backend="auto")`` takes the numpy path, as in the JAX
+package.
+
+Public surface:
+    available()            -> bool: the engine is built and loaded
+    find_neighbors_native  -> backend for models.lattice.find_neighbors
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import functools
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+from typing import Optional, Tuple
+
+import numpy as np
+
+__all__ = ["available", "find_neighbors_native"]
+
+_SRC = Path(__file__).resolve().with_name("neighbor_engine.cpp")
+_BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+
+_I64 = ctypes.POINTER(ctypes.c_int64)
+_I32 = ctypes.POINTER(ctypes.c_int32)
+
+
+def _build() -> Optional[Path]:
+    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(_FLAGS).encode()).hexdigest()[:16]
+    lib = _BUILD_DIR / f"neighbor_engine_{digest}.so"
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(_BUILD_DIR / ".neighbor_engine.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib.is_file():
+            return lib
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        try:
+            subprocess.run(
+                ["g++", *_FLAGS, str(_SRC), "-o", str(tmp)],
+                check=True, capture_output=True, timeout=120,
+            )
+        except (subprocess.SubprocessError, OSError):
+            tmp.unlink(missing_ok=True)
+            return None
+        os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> Optional[ctypes.CDLL]:
+    path = _build()
+    if path is None:
+        return None
+    lib = ctypes.CDLL(str(path))
+    common = [_I64, _I64, _I32, _I64, ctypes.c_int64, ctypes.c_int64,
+              _I64, ctypes.c_int64, ctypes.c_int64]
+    lib.count_neighbors.argtypes = common + [_I64]
+    lib.count_neighbors.restype = None
+    lib.fill_neighbors.argtypes = common + [ctypes.c_int64, _I64, _I64]
+    lib.fill_neighbors.restype = None
+    return lib
+
+
+def available() -> bool:
+    """True when the native engine can be (or has been) built and loaded."""
+    return _lib() is not None
+
+
+def _ptr(a: np.ndarray, ty):
+    return a.ctypes.data_as(ty)
+
+
+def find_neighbors_native(
+    lat, d: int, idx: Optional[np.ndarray] = None
+) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """Native neighbor search; None when the engine is unavailable.
+
+    Same contract as models.lattice.find_neighbors: (nbrs (Q, K) padded -1,
+    rels (Q, K, 3)), K = the true max degree over the query.
+    """
+    lib = _lib()
+    if lib is None or lat.occupancy is None:
+        # The engine indexes a dense occupancy array; huge fine grids carry
+        # only the sorted table (models.lattice.DENSE_OCCUPANCY_LIMIT).
+        return None
+    if idx is None:
+        idx = np.arange(lat.num_points, dtype=np.int64)
+    idx = np.ascontiguousarray(np.asarray(idx, dtype=np.int64))
+    occ = np.ascontiguousarray(lat.occupancy, dtype=np.int64)
+    coords = np.ascontiguousarray(lat.coords, dtype=np.int64)
+    bop = np.ascontiguousarray(lat.box_of_point, dtype=np.int32)
+    spc = np.ascontiguousarray(lat.spacings, dtype=np.int64)
+    nq = len(idx)
+
+    counts = np.empty(nq, dtype=np.int64)
+    args = (
+        _ptr(occ, _I64), _ptr(coords, _I64), _ptr(bop, _I32), _ptr(spc, _I64),
+        ctypes.c_int64(lat.n_fine), ctypes.c_int64(lat.box_depth),
+        _ptr(idx, _I64), ctypes.c_int64(nq), ctypes.c_int64(d),
+    )
+    lib.count_neighbors(*args, _ptr(counts, _I64))
+    k = int(counts.max()) if nq else 0
+
+    nbrs = np.empty((nq, k), dtype=np.int64)
+    rels = np.empty((nq, k, 3), dtype=np.int64)
+    lib.fill_neighbors(
+        *args, ctypes.c_int64(k), _ptr(nbrs, _I64), _ptr(rels, _I64)
+    )
+    return nbrs, rels

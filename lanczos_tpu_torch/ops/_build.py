@@ -1,14 +1,15 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/stencil.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface and loaded with :mod:`ctypes` (no PyTorch
-headers, so the build takes seconds).  The build happens at first use, from
-the sources in this package only, into ``lanczos_tpu_torch/_build/``; the
-library's name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded.  Concurrent builds
-(several test processes on one card) serialise on an ``fcntl`` lock, which
-the kernel releases when its holder dies, so a crashed build leaves no stale
-lock behind.
+Each source of ``csrc/`` (``stencil.cu``, ``interface.cu``) is compiled with
+``nvcc`` for ``sm_90a`` into its own shared library with a plain C
+interface and loaded with :mod:`ctypes` (no PyTorch headers, so a build
+takes seconds).  The build happens at first use, from the sources in this
+package only, into ``lanczos_tpu_torch/_build/``; a library's name carries a
+hash of its source and the flags, so an edited source is rebuilt and a
+stale library is never loaded.  Concurrent builds of one library (several
+test processes on one card) serialise on its own ``fcntl`` lock, which the
+kernel releases when its holder dies, so a crashed build leaves no stale
+lock behind; different libraries build in parallel (:func:`build_all`).
 
 Nothing here runs at import: the CPU tests import every module, and a
 CPU-only host has no ``nvcc``.
@@ -27,10 +28,13 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["BuildInfo", "nvcc_path", "load_stencil_library"]
+__all__ = [
+    "BuildInfo", "nvcc_path", "load_stencil_library", "load_interface_library",
+    "build_all",
+]
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
-_SOURCE = _PKG_DIR / "csrc" / "stencil.cu"
+_CSRC = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 
 NVCC_FLAGS = (
@@ -63,7 +67,7 @@ def nvcc_path() -> str:
     if default.is_file():
         return str(default)
     raise RuntimeError(
-        "nvcc not found (set CUDA_HOME): the CUDA stencil kernels are built "
+        "nvcc not found (set CUDA_HOME): the CUDA kernels are built "
         "from lanczos_tpu_torch/csrc at first use on a CUDA tensor"
     )
 
@@ -75,7 +79,7 @@ def _build(source: Path, stem: str) -> BuildInfo:
     lib = BUILD_DIR / f"lib{stem}_{digest}.so"
     log_path = lib.with_suffix(".log")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / ".lock", "w") as lock:
+    with open(BUILD_DIR / f".{stem}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if lib.is_file():
             log = log_path.read_text() if log_path.is_file() else ""
@@ -100,7 +104,7 @@ def _build(source: Path, stem: str) -> BuildInfo:
 def load_stencil_library():
     """(ctypes library, BuildInfo) for ``csrc/stencil.cu``; built once per
     source version, loaded once per process."""
-    info = _build(_SOURCE, "stencil")
+    info = _build(_CSRC / "stencil.cu", "stencil")
     lib = ctypes.CDLL(str(info.path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for dt in ("f32", "f64"):
@@ -113,3 +117,30 @@ def load_stencil_library():
         spmm.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, i32, ptr]
         spmm.restype = i32
     return lib, info
+
+
+@functools.lru_cache(maxsize=None)
+def load_interface_library():
+    """(ctypes library, BuildInfo) for ``csrc/interface.cu``."""
+    info = _build(_CSRC / "interface.cu", "interface")
+    lib = ctypes.CDLL(str(info.path))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.fused_interface_threads.argtypes = []
+    lib.fused_interface_threads.restype = i32
+    for dt in ("f32", "f64"):
+        fn = getattr(lib, f"fused_interface_{dt}")
+        # x, y, b, cls, taps, w, block_class, n_blocks, stream
+        fn.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, ptr]
+        fn.restype = i32
+    return lib, info
+
+
+def build_all():
+    """Build every kernel library at once, one nvcc per source started
+    together; returns {name: BuildInfo}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    loaders = {"stencil": load_stencil_library, "interface": load_interface_library}
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        futures = {name: pool.submit(fn) for name, fn in loaders.items()}
+        return {name: f.result()[1] for name, f in futures.items()}

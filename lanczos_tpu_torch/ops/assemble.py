@@ -12,7 +12,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .._util import as_numpy_dtype, as_torch_dtype, to_numpy
+from .._util import DEFAULT_DEVICE, as_numpy_dtype, as_torch_dtype, to_numpy
 from .operators import EllOperator, StencilOperator
 
 __all__ = [
@@ -48,7 +48,7 @@ def ell_from_coo(
     dtype=torch.float32,
     k_pad: Optional[int] = None,
     sum_duplicates: bool = True,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> EllOperator:
     """Build a padded-ELL operator from COO triplets.
 
@@ -84,7 +84,9 @@ def ell_from_coo(
     )
 
 
-def ell_from_scipy(A, dtype=None, k_pad: Optional[int] = None, device="cpu") -> EllOperator:
+def ell_from_scipy(
+    A, dtype=None, k_pad: Optional[int] = None, device=DEFAULT_DEVICE
+) -> EllOperator:
     """Convert a scipy sparse matrix to a padded-ELL operator."""
     coo = A.tocoo()
     if dtype is None:

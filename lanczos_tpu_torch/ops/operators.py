@@ -26,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .._util import as_torch_dtype, to_numpy
+from .._util import DEFAULT_DEVICE, as_torch_dtype, to_numpy
 from .stencil_kernels import (
     kernel_supported,
     stencil_spmm,
@@ -303,7 +303,7 @@ def make_stencil_operator(
     weights,
     diag=None,
     dtype=torch.float32,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> StencilOperator:
     """Validating constructor: normalizes offsets, detects a graded ladder,
     and places weights and diag on ``device`` in ``dtype``."""
@@ -330,8 +330,9 @@ def make_stencil_operator(
 
 def as_operator(A, *, dtype=None, device=None) -> LinearOperator:
     """Coerce a dense array or tensor / scipy sparse matrix / operator to a
-    LinearOperator.  ``dtype`` and ``device`` default to the input's own
-    (the CPU for host arrays)."""
+    LinearOperator.  ``dtype`` defaults to the input's own; ``device`` to a
+    tensor's own device and to DEFAULT_DEVICE for host arrays and scipy
+    matrices."""
     if isinstance(A, LinearOperator):
         return A
     import scipy.sparse
@@ -339,7 +340,9 @@ def as_operator(A, *, dtype=None, device=None) -> LinearOperator:
     if scipy.sparse.issparse(A):
         from .assemble import ell_from_scipy
 
-        return ell_from_scipy(A, dtype=dtype, device=device or "cpu")
+        return ell_from_scipy(A, dtype=dtype, device=device or DEFAULT_DEVICE)
+    if device is None and not torch.is_tensor(A):
+        device = DEFAULT_DEVICE
     A = torch.as_tensor(A, device=device)
     if dtype is not None:
         A = A.to(as_torch_dtype(dtype))

@@ -7,3 +7,10 @@ from .tridiag import (
     tridiag_eigh,
     tridiag_to_dense,
 )
+from .arnoldi import ArnoldiFactorization, arnoldi, eigs_nonsym
+from .two_sided import (
+    TwoSidedFactorization,
+    nonsymmetric_tridiag_eig,
+    two_sided_eigs,
+    two_sided_lanczos,
+)

@@ -1,0 +1,306 @@
+"""Arnoldi + Krylov–Schur: the eigensolver for the non-symmetric operator.
+
+Counterpart of ``lanczos_tpu/solver/arnoldi.py``.  The irregular lattice's
+LSQ Laplacian is non-symmetric (models/irr_hamiltonian.py).  Arnoldi keeps
+ONE orthonormal basis (condition number 1 by construction), costs one
+matvec per step and needs no transpose operator, so it stays sound in fp32,
+where the two-sided recurrence (solver/two_sided.py) collapses.
+
+Krylov–Schur restarting (Stewart 2002) bounds the basis at m vectors: after
+each cycle the real Schur form of the Rayleigh quotient is sorted, the k
+wanted Schur vectors are locked, and the recurrence continues from the
+cycle's residual against the locked block — A V_l = V_l T_l + v_next b^T
+with T_l quasi-triangular.
+
+The JAX package's ``lax.scan`` becomes a Python loop over device tensors;
+the basis ``V`` and the Rayleigh quotient ``B`` are filled in place.  Each
+step orthogonalizes against the filled rows ``V[:j+1]`` only (CGS2, two
+GEMV pairs per pass); the JAX package multiplies by the whole zero-padded
+basis, whose zero rows contribute exactly 0.  The Schur and eig of the small
+projected matrix run on the host in float64 (numpy/scipy), as in JAX.
+
+A CompositeV2 start vector must be multiplied by the operator's ``live``
+mask: the dead slots carry an exact eigenvalue 0 (ops/composite2.py), which
+an unmasked start vector brings into the Krylov space.  ``eigs_nonsym``
+does not mask it (nor does the JAX package's); its callers do.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .._util import as_torch_dtype, to_numpy
+from ..ops.operators import LinearOperator
+from .lanczos import _reject_compensated
+from .results import EigResult, acceptance_inner_prod
+
+__all__ = ["ArnoldiFactorization", "arnoldi", "arnoldi_kernel", "eigs_nonsym"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ArnoldiFactorization:
+    """A V[:n].T = V[:n].T H[:n,:n] + H[n, n-1] V[n] e_n^T.
+
+    V: (n+1, M) orthonormal rows; H: (n+1, n) upper Hessenberg.
+    breakdown_iter: 0-d int64 tensor, first j where the new direction
+    vanished (n if none) — an invariant subspace, benign.
+    """
+
+    V: torch.Tensor
+    H: torch.Tensor
+    breakdown_iter: torch.Tensor
+
+    @property
+    def n(self) -> int:
+        return self.H.shape[1]
+
+
+def _extend(matvec: Callable, V, B, j0: int, j1: int, breakdown_iter, reorth_passes: int):
+    """Arnoldi steps j0..j1-1 into V (rows) and B (columns), in place."""
+    eps = float(torch.finfo(V.dtype).eps)
+    for j in range(j0, j1):
+        w = matvec(V[j])
+        Vj = V[: j + 1]
+        h = torch.zeros(j + 1, dtype=V.dtype, device=V.device)
+        for _ in range(reorth_passes):
+            c = Vj @ w
+            w = w - c @ Vj
+            h = h + c
+        hn = torch.sqrt(torch.dot(w, w))
+        ok = hn > 10 * eps
+        breakdown_iter = torch.where(ok, breakdown_iter, breakdown_iter.clamp(max=j))
+        V[j + 1] = w * torch.where(ok, 1.0 / torch.where(ok, hn, 1.0), 0.0)
+        B[: j + 1, j] = h
+        B[j + 1, j] = hn
+    return breakdown_iter
+
+
+def arnoldi_kernel(
+    matvec: Callable,
+    v0: torch.Tensor,
+    n: int,
+    *,
+    reorth_passes: int = 2,
+    compensated: bool = False,
+) -> ArnoldiFactorization:
+    """n Arnoldi steps from v0 (need not be normalized), on v0's device.
+
+    Orthogonalization is CGS with ``reorth_passes`` passes (CGS2 default —
+    the classical twice-is-enough result).
+    """
+    _reject_compensated(compensated)
+    m = v0.shape[0]
+    V = torch.zeros((n + 1, m), dtype=v0.dtype, device=v0.device)
+    V[0] = v0 / torch.sqrt(torch.dot(v0, v0))
+    H = torch.zeros((n + 1, n), dtype=v0.dtype, device=v0.device)
+    bki = torch.tensor(n, dtype=torch.int64, device=v0.device)
+    bki = _extend(matvec, V, H, 0, n, bki, reorth_passes)
+    return ArnoldiFactorization(V=V, H=H, breakdown_iter=bki)
+
+
+def _start_vector(op, v0, seed, dtype):
+    m = op.shape[0]
+    if v0 is None:
+        gen = torch.Generator().manual_seed(seed)
+        v0 = torch.rand(m, generator=gen, dtype=dtype) * 2.0 - 1.0
+    v0 = torch.as_tensor(v0).to(device=op.device, dtype=dtype)
+    if v0.shape != (m,):
+        raise ValueError(f"v0 has shape {tuple(v0.shape)}, expected ({m},)")
+    return v0
+
+
+def _check_dtype(op, dtype):
+    dtype = op.dtype if dtype is None else as_torch_dtype(dtype)
+    if dtype != op.dtype:
+        raise ValueError(
+            f"dtype {dtype} differs from the operator's {op.dtype}; build the "
+            "operator in the dtype to solve in"
+        )
+    return dtype
+
+
+def arnoldi(
+    op: LinearOperator,
+    n: int,
+    *,
+    seed: int = 99,
+    v0=None,
+    reorth_passes: int = 2,
+    dtype=None,
+    compensated: bool = False,
+) -> ArnoldiFactorization:
+    """Run n Arnoldi steps on op (no symmetry assumed), on its device.
+
+    ``v0`` defaults to Uniform(-1, 1) numbers from a ``torch.Generator``
+    seeded with ``seed``, drawn on the CPU.
+    """
+    _reject_compensated(compensated)
+    if n > op.shape[0]:
+        raise ValueError("n cannot exceed operator dimension")
+    dtype = _check_dtype(op, dtype)
+    return arnoldi_kernel(
+        op.matvec, _start_vector(op, v0, seed, dtype), n, reorth_passes=reorth_passes
+    )
+
+
+# ---------------------------------------------------------------------------
+# Krylov–Schur restart cycle
+
+
+def _rotate_basis(V, Z, l: int):
+    """V_new rows [0, l) = Z^T @ V[:m]; row l = old residual row V[m]."""
+    m = V.shape[0] - 1
+    out = torch.zeros_like(V)
+    out[:l] = Z.T @ V[:m]
+    out[l] = V[m]
+    return out
+
+
+def _schur_sort_select(Bm, which, k):
+    """Sorted real Schur form of Bm; returns (T, Z, l) with the l wanted
+    Ritz values leading, l >= k, never splitting a 2x2 block."""
+    import scipy.linalg
+
+    if which == "SR":
+        keyfun = lambda x: -x.real
+    elif which == "LR":
+        keyfun = lambda x: x.real
+    elif which == "LM":
+        keyfun = lambda x: np.abs(x)
+    else:
+        raise ValueError("which must be SR, LR or LM")
+    T, Z = scipy.linalg.schur(Bm, output="real")
+    vals = scipy.linalg.eigvals(T)
+    order = np.argsort(-np.asarray([keyfun(v) for v in vals]))
+    kth = keyfun(vals[order[k - 1]])
+    # f2py inspects the callback's arity: dgees passes (wr, wi) to a two-arg
+    # select function, so the signature must be explicit.
+    T, Z, sdim = scipy.linalg.schur(
+        Bm, output="real", sort=lambda wr, wi: _sort_pred(complex(wr, wi), which, kth),
+    )
+    l = max(int(sdim), k)
+    # Guard 2x2 block splitting: if T[l, l-1] != 0, extend by one.
+    if l < Bm.shape[0] and abs(T[l, l - 1]) > 0:
+        l += 1
+    return T, Z, min(l, Bm.shape[0])
+
+
+def _sort_pred(val, which, kth):
+    if which == "SR":
+        return -val.real >= kth
+    if which == "LR":
+        return val.real >= kth
+    return abs(val) >= kth
+
+
+def eigs_nonsym(
+    op: LinearOperator,
+    k: int = 6,
+    *,
+    max_basis: int = 0,
+    tol: float = 1e-6,
+    max_cycles: int = 60,
+    which: str = "SR",
+    seed: int = 99,
+    v0=None,
+    dtype=None,
+    reorth_passes: int = 2,
+    compensated: bool = False,
+    verbose: bool = False,
+) -> EigResult:
+    """k eigenpairs of a general (non-symmetric) operator by Krylov–Schur,
+    on the operator's device.
+
+    which: "SR" (smallest real part), "LR", or "LM".
+    tol:   true relative residual ||A x - lam x|| / max(|lam|, 1).
+    Returns an EigResult of the k best-verified pairs (real parts;
+    eigenvalues and residuals in float64).  The run stops when every pair's
+    true residual is below ``tol``, when two verifications in a row fail to
+    improve the worst residual by 1.2x, or after ``max_cycles``.
+    """
+    _reject_compensated(compensated)
+    mdim = op.shape[0]
+    dtype = _check_dtype(op, dtype)
+    m = max_basis or max(2 * k + 30, k + 12)
+    m = min(m, mdim - 1)
+
+    v0 = _start_vector(op, v0, seed, dtype)
+    V = torch.zeros((m + 1, mdim), dtype=dtype, device=op.device)
+    V[0] = v0 / torch.linalg.vector_norm(v0)
+    B = torch.zeros((m + 1, m), dtype=dtype, device=op.device)
+    l = 0
+    best = None
+    best_worst = np.inf
+    stall = 0
+
+    for cycle in range(max_cycles):
+        _extend(op.matvec, V, B, l, m, torch.tensor(m, device=op.device), reorth_passes)
+        Bh = to_numpy(B).astype(np.float64)
+        Bm = Bh[:m, :m]
+        bout = float(Bh[m, m - 1])
+        if not np.isfinite(Bm).all() or not np.isfinite(bout):
+            raise FloatingPointError(
+                f"non-finite Rayleigh quotient in Krylov-Schur cycle {cycle}: "
+                f"operator overflow in {dtype} or an invalid start vector"
+            )
+
+        T, Z, l_new = _schur_sort_select(Bm, which, min(k + 8, m - 2))
+        # Residual couplings: A (V Z) = (V Z) T + v_m (bout e_m^T Z).
+        b_new = bout * Z[m - 1, :l_new]
+
+        # Ritz pairs + model residual from the leading Schur block.
+        import scipy.linalg
+
+        vals, Y = scipy.linalg.eig(T[:l_new, :l_new])
+        mres = np.abs(b_new @ Y)  # model residual |b^T y| per Ritz vector
+
+        order = np.argsort(vals.real if which == "SR" else -vals.real)
+        vals, Y, mres = vals[order], Y[:, order], mres[order]
+        scale = np.maximum(np.abs(vals.real), 1.0)
+        conv = (mres[:k] / scale[:k] < tol).all()
+        if verbose:
+            print(
+                f"cycle {cycle}: ritz[0]={vals[0].real:.8g} "
+                f"max-model-resid(k)={float((mres[:k] / scale[:k]).max()):.2e}"
+            )
+
+        # Truncate: rotate basis to the l_new leading Schur vectors.
+        V = _rotate_basis(V, torch.as_tensor(Z[:, :l_new], dtype=dtype, device=op.device), l_new)
+        B = torch.zeros_like(B)
+        B[:l_new, :l_new] = torch.as_tensor(T[:l_new, :l_new], dtype=dtype, device=op.device)
+        B[l_new, :l_new] = torch.as_tensor(b_new, dtype=dtype, device=op.device)
+        l = l_new
+
+        if conv or cycle == max_cycles - 1:
+            # Verify against the operator itself (the model residual can
+            # drift from the true one in fp32), in float64 on the device.
+            Yr = torch.as_tensor(Y.real[:, :k], dtype=torch.float64, device=op.device)
+            Xk = V[:l].double().T @ Yr
+            Xk = Xk / torch.linalg.vector_norm(Xk, dim=0).clamp_min(1e-300)
+            lam = torch.as_tensor(vals[:k].real.copy(), device=op.device)
+            R = op.matmat(Xk.to(dtype).contiguous()).double() - Xk * lam
+            tres = to_numpy(torch.linalg.vector_norm(R, dim=0)) / scale[:k]
+            worst = float(tres.max())
+            if verbose:
+                print(f"  verify: max-true-rel-resid={worst:.2e}")
+            if worst < best_worst / 1.2:
+                stall = 0  # noise-level wiggles below 1.2x must not reset it
+            else:
+                stall += 1
+            if worst < best_worst:
+                best, best_worst = (vals[:k].real.copy(), Xk, tres), worst
+            if worst < tol or stall >= 2:
+                break
+
+    lam, Xk, tres = best
+    vecs = Xk.to(dtype).contiguous()
+    return EigResult(
+        eigenvalues=torch.as_tensor(lam, device=op.device),
+        eigenvectors=vecs,
+        residuals=torch.as_tensor(tres, device=op.device),
+        inner_prod=acceptance_inner_prod(op, vecs),
+    )

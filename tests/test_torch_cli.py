@@ -42,3 +42,44 @@ def test_cuda_device_without_card_fails_loudly():
         pytest.skip("a card is visible; this checks hosts without one")
     with pytest.raises(SystemExit, match="no CUDA device"):
         main(["solve-regular", "-N", "4", "-n", "8", "-k", "2", "--device", "cuda"])
+
+
+IRR = ["solve-irregular", "-N", "24", "-k", "3", "--dtype", "float64", "--device", "cpu"]
+
+
+@pytest.fixture(scope="module")
+def irregular_reference():
+    """lanczos_tpu's Krylov–Schur on its ELL assembly of the CLI's lattice,
+    from the CLI's lattice-order start vector (torch.Generator, seed 99)."""
+    lat = lt.build_lattice(24, 25.0, 3, potential=lt.deuteron_potential_3d)
+    H = lt.assemble_irregular_hamiltonian(lat, lt.deuteron_potential_3d, dtype=np.float64)
+    gen = torch.Generator().manual_seed(99)
+    v0 = (torch.rand(lat.num_points, generator=gen, dtype=torch.float64) * 2 - 1).numpy()
+    res = lt.eigs_nonsym(H, k=3, max_basis=40, tol=1e-4, v0=v0, dtype=np.float64)
+    return lat.num_points, np.asarray(res.eigenvalues)
+
+
+@pytest.mark.parametrize("solver,n", [("krylov-schur", 40), ("two-sided", 120)])
+def test_solve_irregular_matches_jax(solver, n, capsys, tmp_path, irregular_reference):
+    p, ref = irregular_reference
+    out_prefix = str(tmp_path / "irr")
+    res = main(IRR + ["--solver", solver, "-n", str(n), "--out", out_prefix])
+    text = capsys.readouterr().out
+    assert f"# lattice: {p} points" in text and "on cpu" in text
+    assert ("Krylov-Schur" if solver == "krylov-schur" else "two-sided Lanczos") in text
+    assert (res.residuals.numpy() < 1e-4).all()
+    # Converged to a true relative residual of 1e-4 on both sides: the
+    # eigenvalues agree to well inside that (KS on the same start vector).
+    np.testing.assert_allclose(res.eigenvalues.numpy()[0], ref[0], rtol=1e-6)
+    if solver == "krylov-schur":
+        np.testing.assert_allclose(res.eigenvalues.numpy(), ref, rtol=1e-6)
+    vecs = np.load(out_prefix + "_eigvecs.npy")
+    assert vecs.shape == (p, res.k)
+
+
+def test_solve_irregular_unported_options_exit_cleanly():
+    with pytest.raises(SystemExit, match="not yet ported .*Queue 1 #6"):
+        main(IRR + ["--compensated"])
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            main(["solve-irregular", "-N", "24", "--device", "cuda"])

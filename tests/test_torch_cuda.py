@@ -1,4 +1,5 @@
-"""Card-only tests of the port: the CUDA stencil kernels and a small solve.
+"""Card-only tests of the port: the CUDA stencil and interface kernels, a
+CompositeV2 on the card, and a small solve.
 
 They need an NVIDIA GPU and skip here otherwise (decided inside each test,
 so every pytest-xdist worker collects the same tests).  On a card:
@@ -17,6 +18,7 @@ torch.set_num_threads(1)
 
 import lanczos_tpu_torch as pt  # noqa: E402
 from lanczos_tpu_torch.ops import make_stencil_operator  # noqa: E402
+from lanczos_tpu_torch.ops import interface_kernel as ik  # noqa: E402
 from lanczos_tpu_torch.ops import stencil_kernels as sk  # noqa: E402
 
 EPS32 = float(np.finfo(np.float32).eps)
@@ -93,7 +95,8 @@ def test_cuda_eigsh_matches_cpu_fp64():
         12, 25.0, pt.deuteron_potential_3d, stencil="27", dtype=torch.float32, device="cuda"
     )
     H64 = pt.build_regular_hamiltonian(
-        12, 25.0, pt.deuteron_potential_3d, stencil="27", dtype=torch.float64
+        12, 25.0, pt.deuteron_potential_3d, stencil="27", dtype=torch.float64,
+        device="cpu",
     )
     launches = sk.stencil_spmv.launches
     r32 = pt.eigsh(H32, k=4, n=80, v0=v0)
@@ -111,3 +114,60 @@ def test_cuda_eigsh_matches_cpu_fp64():
     assert converged[0]
     for lam in r64.eigenvalues.numpy()[converged]:
         assert np.min(np.abs(vals32 - lam)) <= tol, (lam, vals32, tol)
+
+
+def _mixed_v2(dtype, device):
+    """The JAX tests' mixed lattice (n=24, centre box at spacing 1) as a
+    fused CompositeV2 with its transpose."""
+    sp = np.full(27, 2, dtype=np.int64)
+    sp[13] = 1
+    lat = pt.build_lattice(24, 25.0, 3, spacings=sp)
+    return pt.assemble_irregular_hamiltonian_composite2(
+        lat, pt.deuteron_potential_3d, dtype=dtype, min_grid_rows=4,
+        build_transpose=True, fuse_interface=True, device=device,
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_interface_kernel_matches_reference(dtype):
+    _require_card()
+    # fp32: the stencil kernels' tolerance (FMA, another rounding of each
+    # term); fp64: the same taps in the same order, FMA contraction only.
+    atol_scale, rtol = (2e-5, 1e-4) if dtype == torch.float32 else (1e-12, 1e-12)
+    op, _ = _mixed_v2(dtype, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for fi in (op.fused, op.transpose_op.fused):
+        for b in (None, 3):
+            shape = (op.shape[0],) if b is None else (op.shape[0], b)
+            x = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+            y0 = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+            before = ik.apply_fused_interface.launches
+            y = ik.apply_fused_interface(fi, x, y0.clone())
+            assert ik.apply_fused_interface.launches == before + 1
+            y_ref = ik.apply_fused_interface_reference(fi, x, y0.clone())
+            torch.cuda.synchronize()
+            scale = float(y_ref.abs().max())
+            torch.testing.assert_close(y, y_ref, atol=atol_scale * scale, rtol=rtol)
+    with pytest.raises(ValueError):  # operand on the CPU, tables on the card
+        ik.apply_fused_interface(op.fused, x.cpu(), y0.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_composite_v2_matches_cpu_fp64():
+    _require_card()
+    gpu, idx_map = _mixed_v2(torch.float64, "cuda")
+    cpu, _ = _mixed_v2(torch.float64, "cpu")
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal(cpu.shape[0])) * cpu.live
+    X = torch.from_numpy(rng.standard_normal((cpu.shape[0], 4))) * cpu.live[:, None]
+    before = (ik.apply_fused_interface.launches, sk.stencil_spmv.launches, sk.stencil_spmm.launches)
+    pairs = [(gpu.matvec(x.cuda()), cpu.matvec(x)), (gpu.rmatvec(x.cuda()), cpu.rmatvec(x)),
+             (gpu.matmat(X.cuda()), cpu.matmat(X))]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-12, atol=1e-12 * float(want.abs().max()))
+    levels = len(gpu.level_meta)
+    assert (ik.apply_fused_interface.launches, sk.stencil_spmv.launches,
+            sk.stencil_spmm.launches) == (before[0] + 3, before[1] + 2 * levels, before[2] + levels)
+

@@ -66,7 +66,7 @@ PALLAS_CASES = [
 @pytest.mark.parametrize("case,atol_scale,rtol", PALLAS_CASES)
 def test_spmv_reference_matches_pallas(case, atol_scale, rtol):
     H = _jax_op(case, np.float32)
-    P = from_jax(H)
+    P = from_jax(H, device="cpu")
     if case == (16, "27"):
         assert H.graded is not None and P.graded == H.graded
     x = np.random.default_rng(0).standard_normal(H.shape[0]).astype(np.float32)
@@ -80,7 +80,7 @@ def test_spmv_reference_matches_pallas(case, atol_scale, rtol):
 
 def test_spmm_reference_matches_pallas():
     H = _jax_op((10, "27"), np.float32)
-    P = from_jax(H)
+    P = from_jax(H, device="cpu")
     X = np.random.default_rng(2).standard_normal((H.shape[0], 3)).astype(np.float32)
     Y_pal = np.asarray(stencil_spmm_pallas(H, X, interpret=True))
     Y_ref = sk.stencil_spmm_reference(P, torch.from_numpy(X)).numpy()
@@ -90,7 +90,7 @@ def test_spmm_reference_matches_pallas():
 
 
 def test_offsets_beyond_unit_rejected():
-    op = pt.ops.make_stencil_operator((8, 8, 8), [(2, 0, 0)], [1.0])
+    op = pt.ops.make_stencil_operator((8, 8, 8), [(2, 0, 0)], [1.0], device="cpu")
     assert not sk.kernel_supported(op)
     with pytest.raises(ValueError):
         sk.stencil_spmv(op, torch.zeros(512))
@@ -108,7 +108,7 @@ def test_offsets_beyond_unit_rejected():
 @pytest.mark.parametrize("case", [(8, "27"), (6, "7"), "aniso", "flat"])
 def test_reference_matches_lanczos_tpu_fp64(case):
     H = _jax_op(case, np.float64)
-    P = from_jax(H)
+    P = from_jax(H, device="cpu")
     rng = np.random.default_rng(3)
     x = rng.standard_normal(H.shape[0])
     X = rng.standard_normal((H.shape[0], 4))
@@ -123,7 +123,9 @@ def test_reference_matches_lanczos_tpu_fp64(case):
 
 
 def test_wrapper_rejects_bad_operands():
-    P = pt.build_regular_hamiltonian(6, 25.0, pt.deuteron_potential_3d, stencil="27")
+    P = pt.build_regular_hamiltonian(
+        6, 25.0, pt.deuteron_potential_3d, stencil="27", device="cpu"
+    )
     m = P.shape[0]
     with pytest.raises(TypeError):  # dtype differs from the operator's
         sk.stencil_spmv(P, torch.zeros(m, dtype=torch.float64))
@@ -138,7 +140,9 @@ def test_wrapper_rejects_bad_operands():
 
 
 def test_cpu_calls_do_not_count_launches():
-    P = pt.build_regular_hamiltonian(6, 25.0, pt.deuteron_potential_3d, stencil="27")
+    P = pt.build_regular_hamiltonian(
+        6, 25.0, pt.deuteron_potential_3d, stencil="27", device="cpu"
+    )
     before = (sk.stencil_spmv.launches, sk.stencil_spmm.launches)
     P.matvec(torch.ones(P.shape[0]))
     P.matmat(torch.ones(P.shape[0], 2))

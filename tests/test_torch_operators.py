@@ -41,7 +41,7 @@ def test_potentials_match():
     )
     assert pt.kinetic_prefactor(0.25) == lt.kinetic_prefactor(0.25)
     np.testing.assert_array_equal(
-        pt.square_well_1d(20, dtype=torch.float64).numpy(),
+        pt.square_well_1d(20, dtype=torch.float64, device="cpu").numpy(),
         np.asarray(lt.square_well_1d(20)),
     )
 
@@ -64,7 +64,7 @@ def test_build_regular_hamiltonian_matches(n, ndim, stencil):
     )
     P = pt.build_regular_hamiltonian(
         n, 25.0, pt.deuteron_potential_3d if ndim == 3 else None,
-        ndim=ndim, stencil=stencil, dtype="float64",
+        ndim=ndim, stencil=stencil, dtype="float64", device="cpu",
     )
     assert P.grid_shape == H.grid_shape and P.offsets == H.offsets
     assert P.graded == H.graded
@@ -74,14 +74,16 @@ def test_build_regular_hamiltonian_matches(n, ndim, stencil):
     else:
         assert P.diag is None and H.diag is None
     assert P.dtype == torch.float64
-    assert pt.build_regular_hamiltonian(n, 25.0, ndim=ndim, stencil=stencil).dtype == torch.float32
+    assert pt.build_regular_hamiltonian(
+        n, 25.0, ndim=ndim, stencil=stencil, device="cpu"
+    ).dtype == torch.float32
 
 
 def test_build_chain_hamiltonian_matches():
     n = 60
     v = np.asarray(lt.deuteron_potential_radial(np.linspace(0, 25.0, n)))
     H = lt.build_chain_hamiltonian_1d(n, 25.0, v)
-    P = pt.build_chain_hamiltonian_1d(n, 25.0, v)
+    P = pt.build_chain_hamiltonian_1d(n, 25.0, v, device="cpu")
     assert P.dtype == torch.float64
     np.testing.assert_array_equal(P.to_scipy().toarray(), H.to_scipy().toarray())
 
@@ -96,7 +98,7 @@ def test_ell_operator_matches(rng):
     X = rng.standard_normal((m, b))
     for a in (sym, nonsym):
         J = lt.ell_from_scipy(a, dtype=np.float64)
-        P = pt.ell_from_scipy(a, dtype=np.float64)
+        P = pt.ell_from_scipy(a, dtype=np.float64, device="cpu")
         assert isinstance(P, pt.EllOperator) and P.cols.dtype == torch.int64
         np.testing.assert_allclose(P.matvec(_t(x)).numpy(), np.asarray(J.matvec(x)), rtol=RTOL)
         np.testing.assert_allclose(P.rmatvec(_t(x)).numpy(), np.asarray(J.rmatvec(x)), rtol=RTOL)
@@ -113,7 +115,7 @@ def test_ell_operator_matches(rng):
 def test_ell_from_coo_padding_and_duplicates():
     rows, cols, vals = [0, 0, 2, 2, 2], [1, 1, 0, 2, 1], [1.0, 2.0, 3.0, 4.0, 5.0]
     J = lt.ell_from_coo(rows, cols, vals, 3, dtype=np.float64)
-    P = pt.ell_from_coo(rows, cols, vals, 3, dtype=torch.float64)
+    P = pt.ell_from_coo(rows, cols, vals, 3, dtype=torch.float64, device="cpu")
     np.testing.assert_array_equal(P.to_scipy().toarray(), J.to_scipy().toarray())
     # Row 1 is empty: padded with a self reference of weight 0.
     assert P.cols[1].tolist() == [1, 1, 1] and P.vals[1].tolist() == [0.0, 0.0, 0.0]
@@ -130,7 +132,7 @@ def _stencil_pair(ndim, kind):
         offs, w = lt.laplacian_stencil(ndim, kind)
     diag = rng.standard_normal(int(np.prod(shape)))
     J = jax_make_stencil(shape, offs, w, diag=diag, dtype=np.float64)
-    return J, make_stencil_operator(shape, offs, w, diag=diag, dtype=torch.float64)
+    return J, make_stencil_operator(shape, offs, w, diag=diag, dtype=torch.float64, device="cpu")
 
 
 @pytest.mark.parametrize(
@@ -155,20 +157,20 @@ def test_stencil_operator_matches(ndim, kind):
 
 def test_as_operator():
     a = np.random.default_rng(0).standard_normal((6, 6))
-    D = pt.as_operator(a)
+    D = pt.as_operator(a, device="cpu")
     assert isinstance(D, pt.DenseOperator) and D.dtype == torch.float64
     x = np.ones(6)
     np.testing.assert_allclose(D.matvec(_t(x)).numpy(), a @ x, rtol=RTOL)
     np.testing.assert_allclose(D.rmatvec(_t(x)).numpy(), a.T @ x, rtol=RTOL)
-    assert pt.as_operator(a, dtype="float32").dtype == torch.float32
-    S = pt.as_operator(scipy.sparse.csr_matrix(a))
+    assert pt.as_operator(a, dtype="float32", device="cpu").dtype == torch.float32
+    S = pt.as_operator(scipy.sparse.csr_matrix(a), device="cpu")
     assert isinstance(S, pt.EllOperator)
     np.testing.assert_allclose(S.to_dense().numpy(), a, rtol=RTOL)
     assert pt.as_operator(S) is S
 
 
 def test_operators_are_modules_with_buffers():
-    P = pt.build_regular_hamiltonian(6, 25.0, pt.deuteron_potential_3d)
+    P = pt.build_regular_hamiltonian(6, 25.0, pt.deuteron_potential_3d, device="cpu")
     assert set(dict(P.named_buffers())) == {"weights", "diag"}
     assert P.to("cpu") is P and P.device.type == "cpu"
     assert P.vec_shape == (216,)
@@ -176,23 +178,23 @@ def test_operators_are_modules_with_buffers():
 
 def test_from_jax_round_trips():
     H = lt.build_regular_hamiltonian(6, 25.0, lt.deuteron_potential_3d, stencil="27", dtype="float64")
-    P = from_jax(H)
+    P = from_jax(H, device="cpu")
     assert isinstance(P, pt.StencilOperator)
     assert (P.grid_shape, P.offsets, P.graded) == (H.grid_shape, H.offsets, H.graded)
     np.testing.assert_array_equal(P.weights.numpy(), np.asarray(H.weights))
     np.testing.assert_array_equal(P.diag.numpy(), np.asarray(H.diag))
-    assert from_jax(H, dtype=torch.float32).dtype == torch.float32
+    assert from_jax(H, dtype=torch.float32, device="cpu").dtype == torch.float32
 
     E = lt.ell_from_scipy(random_sparse_symmetric(np.random.default_rng(1), 40), dtype=np.float64)
-    PE = from_jax(E)
+    PE = from_jax(E, device="cpu")
     np.testing.assert_array_equal(PE.cols.numpy(), np.asarray(E.cols))
     np.testing.assert_array_equal(PE.vals.numpy(), np.asarray(E.vals))
 
     a = np.random.default_rng(2).standard_normal((5, 5))
-    np.testing.assert_array_equal(from_jax(lt.DenseOperator(jax.numpy.asarray(a))).A.numpy(), a)
+    np.testing.assert_array_equal(from_jax(lt.DenseOperator(jax.numpy.asarray(a)), device="cpu").A.numpy(), a)
 
     fac = jax_lanczos_kernel(H.matvec, np.ones(H.shape[0]), 6)
-    pf = from_jax(fac)
+    pf = from_jax(fac, device="cpu")
     assert isinstance(pf, pt.LanczosFactorization)
     for name in ("alpha", "beta", "V", "resid"):
         np.testing.assert_array_equal(getattr(pf, name).numpy(), np.asarray(getattr(fac, name)))
@@ -200,3 +202,31 @@ def test_from_jax_round_trips():
 
     with pytest.raises(TypeError):
         from_jax(np.zeros(3))
+
+
+def test_default_device_is_cuda():
+    """A constructor called without ``device`` builds on the card; with no
+    card visible it raises from PyTorch instead of quietly using the CPU."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import lanczos_tpu_torch as lt\n"
+        "from lanczos_tpu_torch._util import DEFAULT_DEVICE\n"
+        "assert DEFAULT_DEVICE == 'cuda'\n"
+        "try:\n"
+        "    H = lt.build_regular_hamiltonian(8, 25.0)\n"
+        "except Exception as e:\n"
+        "    print('raised', type(e).__name__)\n"
+        "else:\n"
+        "    print('built on', H.device)\n"
+    )
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120, env=env,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("raised"), out.stdout
+

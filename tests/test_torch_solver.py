@@ -25,7 +25,7 @@ from lanczos_tpu_torch.solver.results import acceptance_inner_prod  # noqa: E402
 
 def _deuteron(n):
     H = lt.build_regular_hamiltonian(n, 25.0, lt.deuteron_potential_3d, stencil="27", dtype="float64")
-    return H, from_jax(H)
+    return H, from_jax(H, device="cpu")
 
 
 # fp64, same operator arrays and start vector.  With full or selective
@@ -63,7 +63,9 @@ def test_lanczos_breakdown_matches_jax():
 
 
 def test_lanczos_entry_point_checks():
-    P = pt.build_regular_hamiltonian(4, 25.0, pt.deuteron_potential_3d, dtype=torch.float64)
+    P = pt.build_regular_hamiltonian(
+        4, 25.0, pt.deuteron_potential_3d, dtype=torch.float64, device="cpu"
+    )
     with pytest.raises(ValueError):
         pt.lanczos(P, 65)
     with pytest.raises(ValueError):
@@ -81,7 +83,7 @@ def test_tridiag_ritz_and_acceptance_match():
     H, P = _deuteron(6)
     v0 = np.random.default_rng(2).uniform(-1, 1, H.shape[0])
     fj = jax_lanczos_kernel(H.matvec, v0, 30)
-    fp = from_jax(fj)  # identical factorization on both sides
+    fp = from_jax(fj, device="cpu")  # identical factorization on both sides
     tj, Wj = lt.tridiag_eigh(fj.alpha, fj.beta)
     tp, Wp = pt.tridiag_eigh(fp.alpha, fp.beta)
     np.testing.assert_allclose(tp.numpy(), np.asarray(tj), rtol=1e-11, atol=1e-10)
@@ -125,7 +127,7 @@ def test_cpu_oracle_chain():
     """The verify recipe on the port: 1D chain, full Krylov depth, vs scipy."""
     N, L = 1001, 25.0
     v = pt.deuteron_potential_radial(np.linspace(0, L, N))
-    H = pt.build_chain_hamiltonian_1d(N, L, v)
+    H = pt.build_chain_hamiltonian_1d(N, L, v, device="cpu")
     res = pt.eigsh(H, k=5, n=N, which="SA", dtype=torch.float64)
     oracle = np.sort(scipy.sparse.linalg.eigsh(H.to_scipy(), k=5, which="SA")[0])
     # Full Krylov depth in fp64: the Lanczos eigenvalues are scipy's to 1e-8.
@@ -152,7 +154,11 @@ def test_port_never_imports_jax():
         "import sys\n"
         "import lanczos_tpu_torch, lanczos_tpu_torch.cli, lanczos_tpu_torch.convert\n"
         "import lanczos_tpu_torch.ops.stencil_kernels, lanczos_tpu_torch.ops._build\n"
-        "import lanczos_tpu_torch.utils.io\n"
+        "import lanczos_tpu_torch.ops.interface_kernel, lanczos_tpu_torch.ops.composite2\n"
+        "import lanczos_tpu_torch.solver.arnoldi, lanczos_tpu_torch.solver.two_sided\n"
+        "import lanczos_tpu_torch.models.lattice, lanczos_tpu_torch.native\n"
+        "import lanczos_tpu_torch.models.irr_hamiltonian, lanczos_tpu_torch.utils.io\n"
+        "assert not [m for m in sys.modules if m.startswith('lanczos_tpu.') or m == 'lanczos_tpu']\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "print('ok')\n"
     )
