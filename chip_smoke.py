@@ -26,15 +26,18 @@ The irregular multi-resolution lattice (the reference's ``Irr3Ddeuteron.py``):
    against the port's ELL assembly of the same lattice.
 7. Times at N=120, fp32: the interface kernel, its plain version and a
    cuSPARSE CSR product of the interface rows; the whole CompositeV2 matvec
-   and a CSR ``torch.mv`` of the whole H; each with its bound.
+   and a CSR ``torch.mv`` of the whole H; each with its bound (compulsory
+   bytes over the copy rate measured in the same run).
 8. ``eigs_nonsym`` at N=60 (k=5, max_basis=120, tol=1e-4, fp32) against
    golden eigenvalues the JAX package computed in fp64
    (``lanczos_tpu_torch/data/golden_eigs_irregular_n60.json``).
 9. The irregular flagship: N=120, box depth 3, ``eigs_nonsym(k=8,
-   max_basis=300, tol=1e-4)`` on the fused CompositeV2 in fp32, then fp64,
-   with the kernels' launch counts, held against ``IRREGULAR_r04.json``.
-10. ``two_sided_lanczos`` at N=60 in fp64 (n=250) on the fused CompositeV2
-    and its transpose, against the N=60 golden values.
+   max_basis=300, tol=1e-4)`` on the CompositeV2 in fp32, then fp64, with
+   the kernels' launch counts, held against golden eigenvalues the JAX
+   package computed in fp64 (``golden_eigs_irregular_n120.json``); the
+   distance to ``IRREGULAR_r04.json`` is printed, not held.
+10. ``two_sided_lanczos`` at N=60 in fp64 (n=250) on the CompositeV2 and
+    its transpose, against the N=60 golden values.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -204,16 +207,16 @@ def phase_kernels(lt):
     return max_abs
 
 
-#: Published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W), for
-#: the bound of each kernel.
-PEAK_BYTES_PER_S = 3.35e12
+#: Published fp32 peak of one H100 SXM outside the tensor cores (NVIDIA's
+#: data sheet, dense, 700 W), for the operations side of each bound.
 PEAK_FP32_FLOPS = 67e12
 
 
-def bound(bytes_moved, flops):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the fp32 peak, at the published peaks."""
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+def bound(bytes_moved, flops, copy_gbs):
+    """(bound_ms, bound_by): the larger of the compulsory bytes over the
+    card's memory rate, as this run measured it (``copy_rate``), and the
+    operations over the fp32 peak."""
+    t_bytes = bytes_moved / copy_gbs / 1e6
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -284,15 +287,14 @@ def phase_timing(lt):
         ms, samples = cuda_ms(fn)
         plain_ms, plain_samples = cuda_ms(ref)
         lib_ms, lib_samples = cuda_ms(lib)
-        bound_ms, bound_by = bound(bytes_per_call, flops)
+        bound_ms, bound_by = bound(bytes_per_call, flops, copy_gbs)
         rows[kname] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=bound_ms, bound_by=bound_by)
         label = kname if kname == "stencil_spmv" else f"{kname} b=20"
         print(f"  {label:18s} kernel {ms:.4f} ms ({bytes_per_call / ms / 1e6:.1f} GB/s "
               f"of compulsory traffic, {bytes_per_call / ms / 1e6 / copy_gbs:.1%} of copy); "
               f"plain {plain_ms:.4f} ms; CSR {lib_ms:.4f} ms; bound {bound_ms:.4f} ms "
-              f"({bound_by}, published peak; "
-              f"{bytes_per_call / copy_gbs / 1e6:.4f} ms at the copy rate); "
+              f"({bound_by}, at the copy rate); "
               f"samples kernel {['%.4f' % s for s in samples]} "
               f"plain {['%.4f' % s for s in plain_samples]} CSR {['%.4f' % s for s in lib_samples]}")
     return rows
@@ -443,16 +445,17 @@ def interface_csr(fi):
     R output slots: the same sums the kernel computes, for cuSPARSE."""
     import scipy.sparse
 
-    from lanczos_tpu_torch.ops.interface_kernel import _class_windows
+    from lanczos_tpu_torch.ops.interface_kernel import class_windows
 
     out_slots, rr, cc, vv = [], [], [], []
     r0 = 0
-    for base, (ny, nx), o3, step, acc, taps in _class_windows(fi.plan, fi.level_meta):
+    for (base, (ny, nx), o3, step, acc, taps), ws in zip(
+            class_windows(fi.grid_meta, fi.level_meta), fi.grid_w):
         iz, iy, ix = (a.reshape(-1) for a in np.meshgrid(*(np.arange(a) for a in acc), indexing="ij"))
         out_slots.append(base + ((o3[0] + step[0] * iz) * ny + o3[1] + step[1] * iy) * nx
                          + o3[2] + step[2] * ix)
         rows = r0 + np.arange(len(iz))
-        for sbase, (sny, snx), s3, st, w in taps:
+        for (sbase, (sny, snx), s3, st), w in zip(taps, ws.double().cpu().numpy()):
             rr.append(rows)
             cc.append(sbase + ((s3[0] + st[0] * iz) * sny + s3[1] + st[1] * iy) * snx
                       + s3[2] + st[2] * ix)
@@ -509,8 +512,7 @@ def phase_interface_kernel(lt, lattices):
             t0 = time.perf_counter()
             op, idx_map = build_composite_v2(
                 lat, nbrs, rels, weights, diag, scale=-t, dtype=dtype,
-                min_grid_rows=min_rows, fuse_interface=True, build_transpose=True,
-                device="cuda",
+                min_grid_rows=min_rows, build_transpose=True, device="cuda",
             )
             build_s = time.perf_counter() - t0
             ops[(name, dtype)] = (op, idx_map)
@@ -530,8 +532,7 @@ def phase_interface_kernel(lt, lattices):
                     abs_err = float(err.max())
                     max_abs = max(max_abs, abs_err)
                     print(f"  {str(dtype)[6:]:8s} {name:11s} {which:3s} b={b or 1} "
-                          f"{len(fi.plan.classes):4d} {fi.num_rows:6d} {fi.tap_reads:7d} "
-                          f"fallback {len(fi.plan.fallback)} "
+                          f"{fi.cls.shape[0]:4d} {fi.num_rows:6d} {fi.tap_reads:7d} "
                           f"{abs_err:.3e} {abs_err / scale:.3e} {'ok' if ok else 'MISMATCH'}"
                           f"   (build {build_s:.2f} s)")
                     check(ok, f"interface kernel disagrees with its plain version: "
@@ -583,12 +584,11 @@ def phase_interface_timing(lt, ops, host, copy_gbs):
         lambda: ik.apply_fused_interface_reference(fi, next(xs), y), launches=10)
     lib_ms, lib_samples = cuda_ms(lambda: torch.mv(csr_i, next(xs)))
     by = interface_bytes(fi, 4)
-    b_ms, b_by = bound(by, 2 * fi.tap_reads)
-    print(f"  apply_fused_interface: {len(fi.plan.classes)} classes, {fi.num_rows} rows, "
+    b_ms, b_by = bound(by, 2 * fi.tap_reads, copy_gbs)
+    print(f"  apply_fused_interface: {fi.cls.shape[0]} classes, {fi.num_rows} rows, "
           f"{fi.tap_reads} tap reads, {fi.block_class.numel()} blocks, {by} compulsory bytes")
     print(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, CSR torch.mv of the interface rows "
-          f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}, published peak; "
-          f"{by / copy_gbs / 1e6:.6f} ms at the copy rate)")
+          f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}, at the copy rate)")
     print(f"    samples kernel {['%.4f' % s for s in samples]} plain "
           f"{['%.4f' % s for s in plain_samples]} CSR {['%.4f' % s for s in lib_samples]}")
     # The whole operator against one CSR mv of the whole H.
@@ -602,10 +602,9 @@ def phase_interface_timing(lt, ops, host, copy_gbs):
     h_ms, h_samples = cuda_ms(lambda: torch.mv(csr_h, next(xs)))
     buckets = sum(t.numel() * t.element_size() for b in op.ifc_buckets for t in b)
     mv_bytes = 16 * m + by - 8 * fi.num_rows + buckets  # x, diag, keep read, y written
-    mv_bound, mv_by = bound(mv_bytes, 2 * 27 * m)
+    mv_bound, mv_by = bound(mv_bytes, 2 * 27 * m, copy_gbs)
     print(f"  CompositeV2.matvec {mv_ms:.4f} ms vs CSR torch.mv of H ({csr_h.values().numel()} nnz) "
-          f"{h_ms:.4f} ms; bound {mv_bound:.6f} ms ({mv_by}; {mv_bytes} B, "
-          f"{mv_bytes / copy_gbs / 1e6:.6f} ms at the copy rate)")
+          f"{h_ms:.4f} ms; bound {mv_bound:.6f} ms ({mv_by}, {mv_bytes} B at the copy rate)")
     print(f"    samples matvec {['%.4f' % s for s in mv_samples]} CSR {['%.4f' % s for s in h_samples]}")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
 
@@ -688,7 +687,7 @@ def phase_irregular_flagship(lt, host):
         lat = lt.build_lattice(N, 25.0, 3, potential=lt.deuteron_potential_3d)
         t_lat = time.perf_counter() - t0
         op, idx_map = lt.assemble_irregular_hamiltonian_composite2(
-            lat, lt.deuteron_potential_3d, dtype=dtype, fuse_interface=True, device="cuda")
+            lat, lt.deuteron_potential_3d, dtype=dtype, device="cuda")
         torch.cuda.synchronize()
         t_build = time.perf_counter() - t0 - t_lat
         check(lat.num_points == golden["num_points"], "N=120 lattice size differs from the golden's")
@@ -734,7 +733,7 @@ def phase_irregular_flagship(lt, host):
 def phase_two_sided(lt, ops, host):
     from lanczos_tpu_torch.ops import interface_kernel as ik
 
-    print("== two_sided_lanczos at N=60, fp64, n=250, on the fused CompositeV2 and its transpose")
+    print("== two_sided_lanczos at N=60, fp64, n=250, on the CompositeV2 and its transpose")
     golden = load_golden(60)
     lat = host["N=60"][0]
     op, idx_map = ops[("N=60", torch.float64)]

@@ -11,7 +11,7 @@ solvers that are not yet ported and exit with an error.
 ``solve-irregular`` builds the multi-resolution lattice and solves the raw
 non-symmetric Hamiltonian with Krylov–Schur (``eigs_nonsym``, default) or
 two-sided Lanczos.  On ``--device cuda`` both run on the CompositeV2
-operator with the fused interface kernel (two-sided with its transpose);
+operator with the interface kernel (two-sided with its transpose);
 on ``--device cpu`` on the padded-ELL assembly, as the JAX package does on
 its CPU backend.  Two-sided runs in float64 whatever ``--dtype`` says: in
 float32 its recurrence collapses within ~15 iterations.  Start vectors are
@@ -135,7 +135,7 @@ def cmd_solve_irregular(args):
     elif args.solver == "krylov-schur":
         if args.device == "cuda":
             op, idx_map = lt.assemble_irregular_hamiltonian_composite2(
-                lat, pot, dtype=args.dtype, fuse_interface=True, device="cuda",
+                lat, pot, dtype=args.dtype, device="cuda",
             )
         else:
             op = lt.assemble_irregular_hamiltonian(
@@ -152,8 +152,7 @@ def cmd_solve_irregular(args):
         print("# two-sided Lanczos runs in float64")
         if args.device == "cuda":
             h, idx_map = lt.assemble_irregular_hamiltonian_composite2(
-                lat, pot, dtype=torch.float64, build_transpose=True,
-                fuse_interface=True, device="cuda",
+                lat, pot, dtype=torch.float64, build_transpose=True, device="cuda",
             )
         else:
             h = lt.assemble_irregular_hamiltonian(

@@ -1,7 +1,7 @@
 """Carry objects of the JAX package across to the port.
 
 :func:`from_jax` turns a ``lanczos_tpu`` StencilOperator, EllOperator,
-DenseOperator, CompositeV2 (with its fused-interface plan and transpose),
+DenseOperator, CompositeV2 (with its transpose),
 InterfacePlan, IrregularLattice or LanczosFactorization into the port's
 counterpart, so both packages can compute with identical operators and
 states.  It reads attributes through ``np.asarray`` and never imports
@@ -18,7 +18,7 @@ import torch
 from ._util import DEFAULT_DEVICE, as_torch_dtype
 from .models.lattice import IrregularLattice
 from .ops.composite2 import CompositeV2
-from .ops.interface_kernel import FusedInterface, InterfacePlan
+from .ops.interface_kernel import InterfacePlan
 from .ops.operators import DenseOperator, EllOperator, StencilOperator
 from .solver.lanczos import LanczosFactorization
 
@@ -63,13 +63,9 @@ def from_jax(obj, *, device=DEFAULT_DEVICE, dtype=None):
             **{f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
         )
     if kind == "CompositeV2":
+        # The port always applies every class with its interface kernel,
+        # whether or not the JAX operator carries a fused plan.
         level_ops = [from_jax(op, device=device, dtype=dtype) for op in obj.level_ops]
-        op_dtype = level_ops[0].dtype
-        fused = None
-        if obj.fused_plan is not None:
-            fused = FusedInterface(
-                from_jax(obj.fused_plan), obj.level_meta, op_dtype, device
-            )
         return CompositeV2(
             diag=t(obj.diag), keep=t(obj.keep), live=t(obj.live),
             level_ops=level_ops,
@@ -79,7 +75,7 @@ def from_jax(obj, *, device=DEFAULT_DEVICE, dtype=None):
                 for r, i, w in obj.ifc_buckets
             ],
             level_meta=obj.level_meta, grid_meta=obj.grid_meta,
-            symmetric=obj.symmetric, fused=fused,
+            symmetric=obj.symmetric,
             transpose_op=None if obj.transpose_op is None
             else from_jax(obj.transpose_op, device=device, dtype=dtype),
         )

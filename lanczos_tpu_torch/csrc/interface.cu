@@ -11,7 +11,7 @@
 //     y[out]  += acc[i]    at out = row_base + ((oz + szo*iz)*ny + ...) ...
 //
 // for i = (iz, iy, ix) over the class's acc_shape window, taps summed in
-// plan order (the Pallas kernel's order).  x and y are the operator's flat
+// the operator's tap order (the Pallas kernel's order).  x and y are the operator's flat
 // region-native vectors (or row-major (M, b) blocks, one grid row of blocks
 // per column); y already holds the level stencils' output, masked to 0 on
 // interface rows.
@@ -23,7 +23,9 @@
 // at stride 2: it phase-split the level arrays into dense operands once per
 // matvec and accumulated into phase-split outputs.  A CUDA thread reads at
 // any stride, so none of that is carried over: one thread per output row
-// of a class, the strided addresses computed in the index math.
+// of a class, the strided addresses computed in the index math, and every
+// class is served here, whatever its strides (the TPU plan sent classes
+// with strides outside {1, 2} to a plain path).
 //
 // Tables (built once per operator on the host, ops/interface_kernel.py):
 //   cls[c*16 + ...] = row_base, ny, nx, oz, oy, ox, szo, syo, sxo,

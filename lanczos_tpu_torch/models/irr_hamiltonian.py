@@ -194,7 +194,6 @@ def assemble_irregular_hamiltonian_composite2(
     dtype=torch.float32,
     min_grid_rows: int = 16,
     build_transpose: bool = False,
-    fuse_interface: bool = False,
     device=DEFAULT_DEVICE,
 ):
     """H = -T + V as a CompositeV2 (region-native strided irregular format).
@@ -206,9 +205,9 @@ def assemble_irregular_hamiltonian_composite2(
     ``op.live``: the dead slots carry an exact eigenvalue 0.
 
     ``build_transpose=True`` materializes H^T in the same format (the
-    two-sided recurrence needs H^T p every step); ``fuse_interface=True``
-    applies the interface classes with the CUDA kernel of
-    ops.interface_kernel (its plain version on the CPU).
+    two-sided recurrence needs H^T p every step).  The interface classes
+    are applied by the CUDA kernel of ops.interface_kernel (its plain
+    version on the CPU).
     """
     from ..ops.composite2 import build_composite_v2
 
@@ -219,7 +218,7 @@ def assemble_irregular_hamiltonian_composite2(
     return build_composite_v2(
         lat, nbrs, rels, weights, diag, scale=-t_factor, dtype=dtype,
         min_grid_rows=min_grid_rows, build_transpose=build_transpose,
-        fuse_interface=fuse_interface, device=device,
+        device=device,
     )
 
 

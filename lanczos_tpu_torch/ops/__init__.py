@@ -7,7 +7,7 @@ from .operators import (
     make_stencil_operator,
 )
 from .assemble import ell_from_coo, ell_from_scipy, stencil_to_ell
-from .composite2 import CompositeV2, build_composite_v2, interface_apply_full
+from .composite2 import CompositeV2, build_composite_v2, ell_tail
 from .interface_kernel import (
     FusedInterface,
     InterfacePlan,

@@ -18,13 +18,14 @@ production format:
   on the dead slots and that 0 never enters the computation.
 * Interface rows grouped by stencil SIGNATURE into classes that tile
   rectangular affine grids; each tap of a class is one strided slice of its
-  source level's region.  With ``fuse_interface=True`` the planned classes
-  are applied by one launch of the CUDA interface kernel
-  (``ops/interface_kernel.py``); otherwise, and for the plan's fallback
-  classes, by :func:`interface_apply_full`, plain PyTorch (the JAX package
-  computes those outside any Pallas kernel too).
+  source level's region.  Every class is applied by one launch of the CUDA
+  interface kernel (``ops/interface_kernel.py``; its plain version on the
+  CPU), at any stride: the operator always carries the kernel's tables, so
+  the JAX package's ``fuse_interface`` switch and its fallback classes have
+  no counterpart here.
 * Rows that defy the affine detection fall back to a bucketed block-ELL
-  tail (``ops/composite.py``), also plain PyTorch.
+  tail (``ops/composite.py``), plain PyTorch gathers (:func:`ell_tail`), as
+  in the JAX package.
 
 The operator is numerically the padded-ELL assembly's operator from the
 same rows (tests/test_torch_composite2.py holds it against both packages).
@@ -39,45 +40,27 @@ import numpy as np
 import torch
 from torch import nn
 
-from .._util import DEFAULT_DEVICE, as_numpy_dtype, as_torch_dtype, to_numpy
+from .._util import DEFAULT_DEVICE, as_numpy_dtype, as_torch_dtype
 from .composite import IFC_W, _block_ell_buckets
-from .interface_kernel import (
-    FusedInterface,
-    _level_views,
-    _window,
-    apply_fused_interface,
-    plan_interface_kernel,
-)
+from .interface_kernel import FusedInterface, apply_fused_interface
 from .operators import LinearOperator, StencilOperator
 
-__all__ = ["CompositeV2", "build_composite_v2", "interface_apply_full"]
+__all__ = ["CompositeV2", "build_composite_v2", "ell_tail"]
 
 
-def interface_apply_full(x, grid_meta, grid_w, level_meta, ifc_buckets):
-    """Interface contribution (strided classes + block-ELL tail), plain
-    PyTorch.
+def ell_tail(x, ifc_buckets, y):
+    """Add the block-ELL tail (the interface rows no strided class covers)
+    into ``y`` in place and return it; plain PyTorch gathers.
 
-    ``x``: the flat (M,) vector or (M, b) block in region-native layout.
-    Returns the flat contribution, zero outside interface rows.
+    ``x``/``y``: the flat (M,) vector or (M, b) block in region-native layout.
     """
-    x3 = _level_views(x, level_meta)
-    y = torch.zeros_like(x)
-    y3 = _level_views(y, level_meta)
-    for (row_level, out_start, interior, acc_shape, taps), w in zip(grid_meta, grid_w):
-        acc = None
-        for t, (src_level, start, limit, stride) in enumerate(taps):
-            term = w[t] * x3[src_level][_window(start, stride, acc_shape)]
-            acc = term if acc is None else acc + term
-        step = tuple(i + 1 for i in interior)
-        y3[row_level][_window(out_start, step, acc_shape)] += acc
-    if ifc_buckets:
-        m = y.shape[0]
-        pad = (-m) % IFC_W
-        xp = torch.nn.functional.pad(x, (0, 0) * (x.ndim - 1) + (0, pad)) if pad else x
-        xb = xp.reshape(-1, IFC_W, *x.shape[1:])
-        spec = "rbw,rbw->r" if x.ndim == 1 else "rbw,rbwc->rc"
-        for rows, blk_ids, blk_w in ifc_buckets:
-            y.index_add_(0, rows, torch.einsum(spec, blk_w, xb[blk_ids]))
+    m = y.shape[0]
+    pad = (-m) % IFC_W
+    xp = torch.nn.functional.pad(x, (0, 0) * (x.ndim - 1) + (0, pad)) if pad else x
+    xb = xp.reshape(-1, IFC_W, *x.shape[1:])
+    spec = "rbw,rbw->r" if x.ndim == 1 else "rbw,rbwc->rc"
+    for rows, blk_ids, blk_w in ifc_buckets:
+        y.index_add_(0, rows, torch.einsum(spec, blk_w, xb[blk_ids]))
     return y
 
 
@@ -215,10 +198,10 @@ class CompositeV2(LinearOperator):
     start vectors with ``live``.
 
     Buffers: ``diag`` (M,), ``keep`` (M,) 1 on live non-interface rows,
-    ``live`` (M,) 1 on slots holding a lattice point, the classes' tap
-    weights (``grid_w``) and the ELL tail buckets (``ifc_buckets``);
-    ``level_ops`` is a ModuleList of the levels' StencilOperators, ``fused``
-    the FusedInterface (plan + kernel tables) or None, ``transpose_op`` A^T
+    ``live`` (M,) 1 on slots holding a lattice point, and the ELL tail
+    buckets (``ifc_buckets``); ``level_ops`` is a ModuleList of the levels'
+    StencilOperators, ``fused`` the FusedInterface (the interface kernel's
+    tables and the classes' tap weights, ``grid_w``), ``transpose_op`` A^T
     as a second CompositeV2 or None.
 
     Static geometry (plain attributes, as in the JAX package):
@@ -243,7 +226,6 @@ class CompositeV2(LinearOperator):
         level_meta,
         grid_meta,
         symmetric: bool = False,
-        fused: Optional[FusedInterface] = None,
         transpose_op: Optional["CompositeV2"] = None,
     ):
         super().__init__()
@@ -251,9 +233,7 @@ class CompositeV2(LinearOperator):
         self.register_buffer("keep", keep)
         self.register_buffer("live", live)
         self.level_ops = nn.ModuleList(level_ops)
-        self._n_classes = len(grid_w)
-        for i, w in enumerate(grid_w):
-            self.register_buffer(f"grid_w{i}", w)
+        self.fused = FusedInterface(grid_meta, level_meta, grid_w, diag.dtype, diag.device)
         self._n_buckets = len(ifc_buckets)
         for i, (rows, blk_ids, blk_w) in enumerate(ifc_buckets):
             self.register_buffer(f"bucket{i}_rows", rows)
@@ -262,12 +242,11 @@ class CompositeV2(LinearOperator):
         self.level_meta = tuple(level_meta)
         self.grid_meta = tuple(grid_meta)
         self.symmetric = symmetric
-        self.fused = fused
         self.transpose_op = transpose_op
 
     @property
     def grid_w(self) -> Tuple[torch.Tensor, ...]:
-        return tuple(getattr(self, f"grid_w{i}") for i in range(self._n_classes))
+        return self.fused.grid_w
 
     @property
     def ifc_buckets(self):
@@ -278,11 +257,6 @@ class CompositeV2(LinearOperator):
         )
 
     @property
-    def fused_plan(self):
-        """The InterfacePlan of the fused path, or None."""
-        return None if self.fused is None else self.fused.plan
-
-    @property
     def shape(self):
         p = self.diag.shape[0]
         return (p, p)
@@ -291,7 +265,7 @@ class CompositeV2(LinearOperator):
     def dtype(self):
         return self.diag.dtype
 
-    def _apply(self, x: torch.Tensor) -> torch.Tensor:
+    def _compose(self, x: torch.Tensor) -> torch.Tensor:
         """A x for a flat (M,) vector or an (M, b) block."""
         x = x.contiguous()
         block = x.ndim == 2
@@ -303,29 +277,18 @@ class CompositeV2(LinearOperator):
             # (annihilated).
             y[sl] = (op.matmat(x[sl]) if block else op.matvec(x[sl])) * keep
         diag = self.diag[:, None] if block else self.diag
-        if self.fused is not None:
-            y = apply_fused_interface(self.fused, x, y) + diag * x
-            fb = self.fused.plan.fallback
-            if fb or self._n_buckets:
-                grid_w = self.grid_w
-                y = y + interface_apply_full(
-                    x, tuple(self.grid_meta[i] for i in fb),
-                    tuple(grid_w[i] for i in fb), self.level_meta, self.ifc_buckets,
-                )
-            return y
         # Interface rows' stencil output is masked to exactly zero above, so
-        # adding the full interface contribution equals writing it in place.
-        return y + diag * x + interface_apply_full(
-            x, self.grid_meta, self.grid_w, self.level_meta, self.ifc_buckets
-        )
+        # adding the interface contribution equals writing it in place.
+        y = apply_fused_interface(self.fused, x, y) + diag * x
+        return ell_tail(x, self.ifc_buckets, y) if self._n_buckets else y
 
     def matvec(self, x):
-        return self._apply(x)
+        return self._compose(x)
 
     def matmat(self, X):
         """Y = A X for an (M, b) block: one stencil SpMM launch per level
-        and, on the fused path, one interface launch for all b columns."""
-        return self._apply(X)
+        and one interface launch for all b columns."""
+        return self._compose(X)
 
     def rmatvec(self, x):
         if self.symmetric:
@@ -364,7 +327,6 @@ def build_composite_v2(
     interior_weights=None,
     symmetric: bool = False,
     min_grid_rows: int = 16,
-    fuse_interface: bool = False,
     build_transpose: bool = False,
     extra_interface: Optional[np.ndarray] = None,
     device=DEFAULT_DEVICE,
@@ -385,7 +347,6 @@ def build_composite_v2(
     A^T as a second CompositeV2 from the transposed rows; that build widens
     the interface set by one in-edge ring (an interior-classified row of A^T
     may receive an in-edge from an interface row of A).
-    ``fuse_interface=True`` plans the interface classes for the CUDA kernel.
     ``extra_interface``: optional (P,) bool mask forcing rows onto the
     interface path (used internally by the transpose build).
     """
@@ -638,15 +599,6 @@ def build_composite_v2(
     else:
         buckets = ()
 
-    fused = None
-    if fuse_interface and grid_meta:
-        plan = plan_interface_kernel(
-            tuple(grid_meta),
-            tuple(level_meta),
-            [to_numpy(w).astype(np.float64) for w in grid_w],
-        )
-        fused = FusedInterface(plan, level_meta, dtype, device)
-
     op_t = None
     if build_transpose and not symmetric:
         # Interface dilation: any row receiving an in-edge from an interface
@@ -658,8 +610,7 @@ def build_composite_v2(
         op_t, idx_map_t = build_composite_v2(
             lat, nbrsT, relsT, weightsT, diag, scale, dtype=dtype,
             interior_weights=interior_weights, symmetric=False,
-            min_grid_rows=min_grid_rows, fuse_interface=fuse_interface,
-            build_transpose=False, extra_interface=dil, device=device,
+            min_grid_rows=min_grid_rows, build_transpose=False, extra_interface=dil, device=device,
         )
         assert (idx_map_t == idx_map).all()  # same lattice, same layout
 
@@ -673,7 +624,6 @@ def build_composite_v2(
         level_meta=level_meta,
         grid_meta=grid_meta,
         symmetric=symmetric,
-        fused=fused,
         transpose_op=op_t,
     )
     return op, idx_map

@@ -2,20 +2,21 @@
 
 Counterpart of ``lanczos_tpu/ops/interface_kernel.py``:
 
-* :class:`InterfacePlan` and :func:`plan_interface_kernel` build the same
-  plan as the JAX package, from the same static geometry: the same phase
-  operands, output phases, classes (taps in the same order) and fallback
-  split (classes whose strides or output steps leave {1, 2}).  The JAX
-  plan's VMEM budget (``LANCZOS_IFACE_VMEM_MB``) was a TPU VMEM limit and is
-  not carried over.
-* :class:`FusedInterface` holds the plan and, as buffers, the tables the
-  CUDA kernel reads; they are built once, when the operator is built.
+* :class:`FusedInterface` holds, as buffers, the tables the CUDA kernel
+  reads, built once with the operator straight from its static geometry
+  (``grid_meta``): every interface class, at any stride.
 * :func:`apply_fused_interface` replaces the Pallas kernel of the same name:
-  it adds every planned class's weighted tap sum into ``y``, in place, with
-  one launch of ``csrc/interface.cu`` (one thread per class row; see the
+  it adds every class's weighted tap sum into ``y``, in place, with one
+  launch of ``csrc/interface.cu`` (one thread per class row; see the
   source's header for the design and what bounds it).
 * :func:`apply_fused_interface_reference` is the plain PyTorch version:
   strided slices of the level regions, summed in tap order, added in place.
+* :class:`InterfacePlan` and :func:`plan_interface_kernel` are the JAX
+  package's plan (phase-split operands and a fallback split for strides
+  outside {1, 2}, both answers to Mosaic's stride limit), ported so the
+  two packages' plans can be compared and converted.  The kernel does not
+  read it.  The JAX plan's VMEM budget (``LANCZOS_IFACE_VMEM_MB``) is not
+  carried over.
 
 Dispatch is by the tensor's device only: a CPU tensor goes to the plain
 version, a CUDA tensor launches the kernel or raises.  There is no fallback
@@ -38,6 +39,7 @@ __all__ = [
     "InterfacePlan",
     "FusedInterface",
     "plan_interface_kernel",
+    "class_windows",
     "apply_fused_interface",
     "apply_fused_interface_reference",
 ]
@@ -61,8 +63,8 @@ class InterfacePlan:
         ((operand_idx, start3, weight), ...); each tap reads its operand at
         ``start3 : start3 + acc_shape`` and the class adds into
         ``out_operands[out_idx]`` at ``out_off : out_off + acc_shape``.
-    fallback: indices into the operator's grid_meta for classes the kernel
-        does not cover (served by the plain interface path).
+    fallback: indices into the operator's grid_meta for classes the Pallas
+        kernel does not cover.
     """
 
     operands: Tuple
@@ -130,53 +132,52 @@ def plan_interface_kernel(grid_meta, level_meta, grid_w_host) -> InterfacePlan:
     )
 
 
-def _class_windows(plan: InterfacePlan, level_meta):
-    """Per class: (row_base, (ny, nx), out_start (3), step (3), acc_shape,
-    taps as (src_base, (ny, nx), start (3), stride (3), weight)), in
-    absolute level-region coordinates."""
+def class_windows(grid_meta, level_meta):
+    """Per class of ``grid_meta``: (row_base, (ny, nx), out_start (3),
+    step (3), acc_shape, taps as (src_base, (ny, nx), start (3), stride
+    (3))), in absolute level-region coordinates."""
     out = []
-    for oid, off, acc_shape, taps in plan.classes:
-        rl, step, par, _ = plan.out_operands[oid]
-        _, ext, base = level_meta[rl]
-        o3 = tuple(par[ax] + step[ax] * off[ax] for ax in range(3))
+    for row_level, out_start, interior, acc_shape, taps in grid_meta:
+        _, ext, base = level_meta[row_level]
         ktaps = []
-        for oi, st_op, w in taps:
-            lvl, stride, tpar, _ = plan.operands[oi]
-            _, sext, sbase = level_meta[lvl]
-            s3 = tuple(tpar[ax] + stride[ax] * st_op[ax] for ax in range(3))
-            ktaps.append((sbase, tuple(sext[1:]), s3, tuple(stride), w))
-        out.append((base, tuple(ext[1:]), o3, tuple(step), tuple(acc_shape), ktaps))
+        for src_level, start, _, stride in taps:
+            _, sext, sbase = level_meta[src_level]
+            ktaps.append((sbase, tuple(sext[1:]), tuple(start), tuple(stride)))
+        step = tuple(int(i) + 1 for i in interior)
+        out.append((base, tuple(ext[1:]), tuple(out_start), step, tuple(acc_shape), ktaps))
     return out
 
 
 class FusedInterface(nn.Module):
-    """The plan of an operator and, as buffers, the CUDA kernel's tables.
+    """Every strided interface class of an operator, as the CUDA kernel's
+    tables (buffers, built once with the operator).
 
     ``cls`` (C, 16) int32, ``taps`` (T, 9) int32 and ``block_class`` (B,)
     int32 hold the layout described in ``csrc/interface.cu``; ``tap_w``
-    (T,) holds the tap weights in the operator's dtype.  Building it checks
-    on the host that no two classes write the same slot, so the kernel runs
-    without atomics.
+    (T,) holds the classes' tap weights, class after class, in the
+    operator's dtype.  A CUDA thread reads at any stride, so every class
+    of ``grid_meta`` is in the tables: none is left to another path.
+    Building them checks on the host that no two classes write the same
+    slot, so the kernel runs without atomics.
     """
 
-    def __init__(self, plan: InterfacePlan, level_meta, dtype, device):
+    def __init__(self, grid_meta, level_meta, grid_w, dtype, device):
         super().__init__()
-        self.plan = plan
+        self.grid_meta = tuple(grid_meta)
         self.level_meta = tuple(level_meta)
         m = sum(int(np.prod(ext)) for _, ext, _ in level_meta)
         if m >= 2**31:
             raise ValueError(f"operator of {m} slots exceeds the kernel's int32 tables")
-        cls_rows, tap_rows, weights, block_class = [], [], [], []
+        cls_rows, tap_rows, block_class = [], [], []
         slots = []
         for c, (base, (ny, nx), o3, step, acc, ktaps) in enumerate(
-            _class_windows(plan, level_meta)
+            class_windows(grid_meta, level_meta)
         ):
             rows = int(np.prod(acc))
             cls_rows.append([base, ny, nx, *o3, *step, *acc, len(tap_rows),
                              len(ktaps), len(block_class), 0])
-            for sbase, (sny, snx), s3, stride, w in ktaps:
+            for sbase, (sny, snx), s3, stride in ktaps:
                 tap_rows.append([sbase, sny, snx, *s3, *stride])
-                weights.append(w)
             block_class.extend([c] * -(-rows // THREADS))
             iz, iy, ix = np.meshgrid(*(np.arange(a) for a in acc), indexing="ij")
             slots.append(
@@ -192,6 +193,7 @@ class FusedInterface(nn.Module):
                 )
         self.num_rows = len(slots)
         self.num_taps = len(tap_rows)
+        self._tap_counts = tuple(len(taps) for *_, taps in self.grid_meta)
 
         def table(rows, width):
             a = np.asarray(rows, dtype=np.int64).reshape(-1, width)
@@ -202,14 +204,22 @@ class FusedInterface(nn.Module):
         self.register_buffer(
             "block_class", torch.as_tensor(block_class, dtype=torch.int32, device=device)
         )
+        w = [torch.as_tensor(v, dtype=as_torch_dtype(dtype), device=device) for v in grid_w]
         self.register_buffer(
-            "tap_w", torch.as_tensor(weights, dtype=as_torch_dtype(dtype), device=device)
+            "tap_w", torch.cat(w) if w else torch.zeros(0, dtype=as_torch_dtype(dtype), device=device)
         )
+        if self.tap_w.shape[0] != self.num_taps:
+            raise ValueError(f"{self.tap_w.shape[0]} tap weights for {self.num_taps} taps")
+
+    @property
+    def grid_w(self) -> Tuple[torch.Tensor, ...]:
+        """Each class's tap weights: views into ``tap_w``."""
+        return tuple(torch.split(self.tap_w, self._tap_counts))
 
     @property
     def tap_reads(self) -> int:
         """Tap reads of one application: sum over classes of rows x taps."""
-        return int(sum(np.prod(c[2]) * len(c[3]) for c in self.plan.classes))
+        return int(sum(np.prod(acc) * len(taps) for *_, acc, taps in self.grid_meta))
 
 
 def _level_views(t: torch.Tensor, level_meta):
@@ -229,23 +239,18 @@ def _window(start, step, shape):
 
 
 def apply_fused_interface_reference(fi: FusedInterface, x: torch.Tensor, y: torch.Tensor):
-    """Plain PyTorch: add every planned class's contribution into ``y`` in
-    place and return it.  ``x``/``y`` are flat (M,) vectors or (M, b) blocks
-    in the operator's region-native layout."""
+    """Plain PyTorch: add every class's contribution into ``y`` in place
+    and return it.  ``x``/``y`` are flat (M,) vectors or (M, b) blocks in
+    the operator's region-native layout."""
     x3 = _level_views(x, fi.level_meta)
     y3 = _level_views(y, fi.level_meta)
-    t = 0
-    for oid, off, acc_shape, taps in fi.plan.classes:
+    for (row_level, out_start, interior, acc_shape, taps), w in zip(fi.grid_meta, fi.grid_w):
         acc = None
-        for oi, st_op, _ in taps:
-            lvl, stride, par, _ = fi.plan.operands[oi]
-            start = tuple(par[ax] + stride[ax] * st_op[ax] for ax in range(3))
-            term = fi.tap_w[t] * x3[lvl][_window(start, stride, acc_shape)]
+        for t, (src_level, start, _, stride) in enumerate(taps):
+            term = w[t] * x3[src_level][_window(start, stride, acc_shape)]
             acc = term if acc is None else acc + term
-            t += 1
-        rl, step, par, _ = fi.plan.out_operands[oid]
-        o3 = tuple(par[ax] + step[ax] * off[ax] for ax in range(3))
-        y3[rl][_window(o3, step, acc_shape)] += acc
+        step = tuple(i + 1 for i in interior)
+        y3[row_level][_window(out_start, step, acc_shape)] += acc
     return y
 
 
@@ -270,9 +275,8 @@ def _check(fi: FusedInterface, x: torch.Tensor, y: torch.Tensor) -> None:
 
 
 def apply_fused_interface(fi: FusedInterface, x: torch.Tensor, y: torch.Tensor):
-    """Add every planned class's contribution into ``y`` in place (flat
-    (M,) vectors or row-major (M, b) blocks) and return ``y``.  Fallback
-    classes are NOT handled here."""
+    """Add every class's contribution into ``y`` in place (flat (M,)
+    vectors or row-major (M, b) blocks) and return ``y``."""
     _check(fi, x, y)
     if x.device.type == "cpu":
         return apply_fused_interface_reference(fi, x, y)

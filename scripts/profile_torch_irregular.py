@@ -43,7 +43,7 @@ def main():
 
     lat = lt.build_lattice(120, 25.0, 3, potential=lt.deuteron_potential_3d)
     op, idx_map = lt.assemble_irregular_hamiltonian_composite2(
-        lat, lt.deuteron_potential_3d, dtype=torch.float32, fuse_interface=True, device="cuda")
+        lat, lt.deuteron_potential_3d, dtype=torch.float32, device="cuda")
     _, warm = solve(op, idx_map, lat.num_points)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         res, wall = solve(op, idx_map, lat.num_points)

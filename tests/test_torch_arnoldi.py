@@ -40,7 +40,7 @@ def ops():
     E = pt.assemble_irregular_hamiltonian(lat, pt.deuteron_potential_3d, dtype=torch.float64, device="cpu")
     C, idx_map = pt.assemble_irregular_hamiltonian_composite2(
         lat, pt.deuteron_potential_3d, dtype=torch.float64, min_grid_rows=4,
-        build_transpose=True, fuse_interface=True, device="cpu",
+        build_transpose=True, device="cpu",
     )
     return J, E, C, idx_map
 

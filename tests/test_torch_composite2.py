@@ -1,4 +1,4 @@
-"""Port's CompositeV2 and fused-interface plan against lanczos_tpu.
+"""Port's CompositeV2, fused-interface tables and plan against lanczos_tpu.
 
 The lattice is the JAX tests' mixed lattice (n=24, box depth 3, centre box
 at spacing 1) with ``min_grid_rows=4``, so the strided-class path and the
@@ -36,7 +36,9 @@ def _mixed(pkg):
 
 def _build_pair(fuse_interface):
     """(JAX operator, port operator, idx_map, P) built from the same rows,
-    with their transposes; the diagonal carries the deuteron potential."""
+    with their transposes; the diagonal carries the deuteron potential.
+    ``fuse_interface`` is the JAX builder's switch: the port always applies
+    every class with its interface kernel."""
     lat_j, lat_p = _mixed(lt), _mixed(pt)
     nbrs, rels, weights = irregular_laplacian_rows(lat_p)
     t = kinetic_prefactor(lat_p.s)
@@ -44,8 +46,10 @@ def _build_pair(fuse_interface):
     diag = t * weights.sum(axis=1) + pt.deuteron_potential_3d(
         *(torch.from_numpy(phys[:, a]) for a in range(3))
     ).numpy()
-    kw = dict(scale=-t, min_grid_rows=4, build_transpose=True, fuse_interface=fuse_interface)
-    J, idx_j = jax_build(lat_j, nbrs, rels, weights, diag, dtype=np.float64, **kw)
+    kw = dict(scale=-t, min_grid_rows=4, build_transpose=True)
+    J, idx_j = jax_build(
+        lat_j, nbrs, rels, weights, diag, dtype=np.float64, fuse_interface=fuse_interface, **kw
+    )
     P, idx_p = build_composite_v2(
         lat_p, nbrs, rels, weights, diag, dtype=torch.float64, device="cpu", **kw
     )
@@ -61,7 +65,8 @@ def pair():
 
 @pytest.fixture(scope="module")
 def unfused_pair():
-    """Every class through interface_apply_full on both sides."""
+    """The JAX operator without its fused plan: every class through its
+    plain interface path."""
     return _build_pair(False)
 
 
@@ -93,20 +98,21 @@ def test_build_matches_jax(pair):
         for la, lb in zip(A.level_ops, B.level_ops):
             assert (la.grid_shape, la.offsets, la.graded) == (lb.grid_shape, lb.offsets, lb.graded)
             np.testing.assert_array_equal(la.weights.numpy(), np.asarray(lb.weights))
-    assert set(dict(P.named_buffers())) >= {"diag", "keep", "live", "grid_w0", "bucket0_rows"}
+    assert set(dict(P.named_buffers())) >= {"diag", "keep", "live", "fused.tap_w", "bucket0_rows"}
 
 
 def test_plan_matches_jax(pair):
     J, P, _, _ = pair
     for A, B in ((P, J), (P.transpose_op, J.transpose_op)):
-        _assert_plan_equal(A.fused_plan, B.fused_plan)
-        assert len(A.fused_plan.classes) > 0
-    assert P.fused_plan.fallback == ()  # 2:1 graded: every class of A covered
-    # The plan builder itself, from the JAX operator's static geometry.
-    plan = ik.plan_interface_kernel(
-        J.grid_meta, J.level_meta, [np.asarray(w, np.float64) for w in J.grid_w]
-    )
-    _assert_plan_equal(plan, J.fused_plan)
+        plan = ik.plan_interface_kernel(
+            A.grid_meta, A.level_meta, [w.numpy() for w in A.grid_w]
+        )
+        _assert_plan_equal(plan, B.fused_plan)
+        assert len(plan.classes) > 0
+        # The port's kernel takes every class, the JAX plan's fallback too.
+        assert A.fused.cls.shape[0] == len(A.grid_meta) >= len(plan.classes)
+    plan = ik.plan_interface_kernel(P.grid_meta, P.level_meta, P.grid_w)
+    assert plan.fallback == ()  # 2:1 graded: every class of A covered
 
 
 @pytest.mark.parametrize("transposed", [False, True])
@@ -119,6 +125,9 @@ def test_fused_reference_matches_pallas(pair, transposed):
     y = rng.standard_normal(P.shape[0])
     x3 = [jnp.asarray(x[st:st + int(np.prod(e))].reshape(e)) for _, e, st in J.level_meta]
     y3 = [jnp.asarray(y[st:st + int(np.prod(e))].reshape(e)) for _, e, st in J.level_meta]
+    # The JAX plan covers every class here, as the port's tables do (a class
+    # the JAX plan leaves out: test_class_outside_tpu_strides_at_n60).
+    assert J.fused_plan.fallback == ()
     y3 = jax_fused(J.fused_plan, x3, y3, interpret=True)
     y_jax = np.concatenate([np.asarray(v).reshape(-1) for v in y3])
     y_port = ik.apply_fused_interface_reference(
@@ -130,7 +139,7 @@ def test_fused_reference_matches_pallas(pair, transposed):
 @pytest.mark.parametrize("which", ["pair", "unfused_pair"])
 def test_operator_matches_jax(which, request):
     J, P, _, _ = request.getfixturevalue(which)
-    assert (P.fused is None) == (which == "unfused_pair") == (J.fused_plan is None)
+    assert (J.fused_plan is None) == (which == "unfused_pair")
     x = _x(P, 5)
     X = _x(P, 6, b=3)
     yj = np.asarray(jax.jit(J.matvec)(x))
@@ -170,16 +179,15 @@ def test_class_windows_are_disjoint(pair):
     _, P, _, _ = pair
     for A in (P, P.transpose_op):
         fi = A.fused
-        assert fi.num_rows == sum(int(np.prod(c[2])) for c in fi.plan.classes)
-        assert fi.block_class.shape[0] == sum(
-            -(-int(np.prod(c[2])) // ik.THREADS) for c in fi.plan.classes
-        )
-    # A plan whose two classes write the same window is refused: the kernel
-    # has one writer per slot and would race.
-    plan = P.fused.plan
-    twice = ik.InterfacePlan(plan.operands, plan.out_operands, plan.classes[:1] * 2, ())
+        acc = [int(np.prod(g[3])) for g in A.grid_meta]
+        assert fi.num_rows == sum(acc)
+        assert fi.block_class.shape[0] == sum(-(-r // ik.THREADS) for r in acc)
+    # Two classes that write the same window are refused: the kernel has
+    # one writer per slot and would race.
     with pytest.raises(AssertionError, match="overlapping"):
-        ik.FusedInterface(twice, P.level_meta, torch.float64, "cpu")
+        ik.FusedInterface(
+            P.grid_meta[:1] * 2, P.level_meta, P.grid_w[:1] * 2, torch.float64, "cpu"
+        )
 
 
 def test_wrapper_dispatch_and_checks(pair):
@@ -208,7 +216,9 @@ def test_from_jax_round_trips(pair):
     J, P, _, _ = pair
     C = from_jax(J, device="cpu")
     assert isinstance(C, pt.CompositeV2) and isinstance(C.transpose_op, pt.CompositeV2)
-    _assert_plan_equal(C.fused_plan, P.fused_plan)
+    for a, b in ((C, P), (C.transpose_op, P.transpose_op)):
+        for name in ("cls", "taps", "block_class", "tap_w"):
+            assert torch.equal(getattr(a.fused, name), getattr(b.fused, name)), name
     x = torch.from_numpy(_x(P, 13))
     np.testing.assert_array_equal(C.matvec(x).numpy(), P.matvec(x).numpy())
     np.testing.assert_array_equal(C.rmatvec(x).numpy(), P.rmatvec(x).numpy())
@@ -216,3 +226,44 @@ def test_from_jax_round_trips(pair):
     assert isinstance(plan, ik.InterfacePlan)
     lat = from_jax(_mixed(lt))
     assert isinstance(lat, pt.IrregularLattice) and lat.num_points == _mixed(pt).num_points
+
+
+def test_module_conversions(pair):
+    """nn.Module's .to()/.double() walk the operator, its interface tables
+    and its transpose; the operator's own methods do not shadow them."""
+    J, P, _, _ = pair
+    C = from_jax(J, device="cpu", dtype=torch.float32)
+    assert C.to("cpu") is C and C.dtype == C.transpose_op.dtype == torch.float32
+    assert C.double() is C
+    for A in (C, C.transpose_op):
+        assert A.dtype == A.fused.tap_w.dtype == A.level_ops[0].weights.dtype == torch.float64
+        assert A.fused.cls.dtype == torch.int32
+    x = torch.from_numpy(_x(P, 14))
+    y = P.matvec(x)
+    # fp32-rounded weights, applied in fp64.
+    tol = dict(rtol=1e-6, atol=1e-6 * float(y.abs().max()))
+    torch.testing.assert_close(C.matvec(x), y, **tol)
+    torch.testing.assert_close(C.rmatvec(x), P.rmatvec(x), **tol)
+
+
+def test_class_outside_tpu_strides_at_n60():
+    """At N=60 one class of A^T steps by 13 slots along z: the JAX plan
+    leaves it to a plain path (Pallas reads strides 1 and 2 only); the
+    port's kernel tables take it with the rest, and the operator still
+    equals the ELL assembly."""
+    lat = pt.build_lattice(60, 25.0, 3, potential=pt.deuteron_potential_3d)
+    C, idx_map = pt.assemble_irregular_hamiltonian_composite2(
+        lat, pt.deuteron_potential_3d, dtype=torch.float64, build_transpose=True, device="cpu"
+    )
+    T = C.transpose_op
+    plan = ik.plan_interface_kernel(T.grid_meta, T.level_meta, T.grid_w)
+    assert len(plan.fallback) > 0
+    assert T.fused.cls.shape[0] == len(T.grid_meta) == len(plan.classes) + len(plan.fallback)
+    E = pt.assemble_irregular_hamiltonian(lat, pt.deuteron_potential_3d, dtype=torch.float64, device="cpu")
+    x = np.random.default_rng(15).standard_normal(lat.num_points)
+    v = torch.zeros(C.shape[0], dtype=torch.float64)
+    v[idx_map] = torch.from_numpy(x)
+    for got, want in ((C.matvec(v), E.matvec(torch.from_numpy(x)).numpy()),
+                      (C.rmatvec(v), E.to_scipy().T @ x)):
+        np.testing.assert_allclose(got.numpy()[idx_map], want, rtol=1e-12,
+                                   atol=1e-12 * np.abs(want).max())

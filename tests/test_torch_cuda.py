@@ -118,13 +118,13 @@ def test_cuda_eigsh_matches_cpu_fp64():
 
 def _mixed_v2(dtype, device):
     """The JAX tests' mixed lattice (n=24, centre box at spacing 1) as a
-    fused CompositeV2 with its transpose."""
+    CompositeV2 with its transpose."""
     sp = np.full(27, 2, dtype=np.int64)
     sp[13] = 1
     lat = pt.build_lattice(24, 25.0, 3, spacings=sp)
     return pt.assemble_irregular_hamiltonian_composite2(
         lat, pt.deuteron_potential_3d, dtype=dtype, min_grid_rows=4,
-        build_transpose=True, fuse_interface=True, device=device,
+        build_transpose=True, device=device,
     )
 
 
