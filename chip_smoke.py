@@ -10,9 +10,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (``stencil.cu``, ``interface.cu``; one nvcc each, started together), with
    nvcc's ``-Xptxas -v`` report.
 3. Each stencil kernel against its plain PyTorch version, on the same CUDA
-   tensors, in fp32 and fp64, at the test shapes and at the flagship
-   N=160^3; then kernel, plain and cuSPARSE CSR times at N=160^3 (CUDA
-   events).
+   tensors, in fp32 and fp64, at the test shapes, the level grids of the
+   N=60 and N=120 lattices (20^3, 30^3, 40^3, 60^3), two odd grids and the
+   flagship N=160^3; then kernel, plain and cuSPARSE CSR times at N=160^3.
 4. ``eigsh`` at N=64 (k=8, n=150, fp32) against golden eigenvalues that the
    JAX package computed in fp64 (``lanczos_tpu_torch/data/golden_eigsh_n64.json``).
 5. The flagship: N=160^3, L=25 fm, 27-point, ``eigsh(k=20, n=400, "SA")``
@@ -25,9 +25,18 @@ The irregular multi-resolution lattice (the reference's ``Irr3Ddeuteron.py``):
    lattices; at N=60 in fp64 the whole CompositeV2 (matvec, rmatvec)
    against the port's ELL assembly of the same lattice.
 7. Times at N=120, fp32: the interface kernel, its plain version and a
-   cuSPARSE CSR product of the interface rows; the whole CompositeV2 matvec
-   and a CSR ``torch.mv`` of the whole H; each with its bound (compulsory
-   bytes over the copy rate measured in the same run).
+   cuSPARSE CSR product of the interface rows; the stencil SpMV on the two
+   level grids; the whole CompositeV2 matvec and a CSR ``torch.mv`` of the
+   whole H; each with its bound (compulsory bytes over the card's
+   published HBM rate, 3.35 TB/s, or operations over its fp32 peak) and,
+   beside it, the bytes' time at the copy rate measured in the same run.
+
+Times: a kernel's ``ms`` is its graph-replay time (its launches captured
+in a CUDA graph with their rotating inputs, replays timed with CUDA
+events: device time without the wrapper's host work), printed beside its
+eager time (CUDA events around a loop of calls, which the host paces when
+its work per call outlasts the kernel) and the launch floor (a one-element
+``fill_`` replayed the same way).  Plain versions are timed eagerly.
 8. ``eigs_nonsym`` at N=60 (k=5, max_basis=120, tol=1e-4, fp32) against
    golden eigenvalues the JAX package computed in fp64
    (``lanczos_tpu_torch/data/golden_eigs_irregular_n60.json``).
@@ -46,7 +55,6 @@ The line before the last is a JSON object of the kernels; the last line is
 import itertools
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -68,22 +76,30 @@ def check(cond, msg):
         fail(msg)
 
 
-def cuda_ms(fn, launches=100, samples=5):
-    """Median ms per call over ``samples`` runs of ``launches`` calls, timed
-    with CUDA events after one warm-up call; also returns every sample."""
-    fn()
-    torch.cuda.synchronize()
-    per_call = []
-    for _ in range(samples):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(launches):
-            fn()
-        end.record()
-        end.synchronize()
-        per_call.append(start.elapsed_time(end) / launches)
-    return statistics.median(per_call), per_call
+def fmt(samples):
+    return ["%.4f" % s for s in samples]
+
+
+def device_times(fn, launches=50, eager_launches=100):
+    """(graph-replay ms, eager ms) per call of ``fn`` (a kernel or the
+    library call it is measured against), with every sample
+    (``lanczos_tpu_torch.utils.timing``)."""
+    from lanczos_tpu_torch.utils.timing import eager_ms, graph_ms
+
+    g, g_samples = graph_ms(fn, launches=launches)
+    e, e_samples = eager_ms(fn, launches=eager_launches)
+    return g, e, g_samples, e_samples
+
+
+def launch_floor():
+    """Graph-replay ms of a one-element ``fill_``: what any kernel of a graph
+    costs at the least."""
+    from lanczos_tpu_torch.utils.timing import graph_ms
+
+    buf = torch.zeros(1, device="cuda")
+    ms, _ = graph_ms(lambda: buf.fill_(1.0))
+    print(f"  launch floor (graph replay of a one-element fill_): {ms:.5f} ms")
+    return ms
 
 
 def gershgorin_norm(op):
@@ -106,7 +122,9 @@ def fp32_tolerance(op):
 
 
 def kernel_cases(lt, dtype):
-    """(name, operator) at the CPU tests' shapes plus the flagship."""
+    """(name, operator) at the CPU tests' shapes, the irregular lattices'
+    level grids, two odd grids (one plane; a row that is no multiple of 16
+    bytes) and the flagship."""
     from lanczos_tpu_torch.ops.operators import make_stencil_operator
 
     dev = "cuda"
@@ -128,6 +146,14 @@ def kernel_cases(lt, dtype):
         [1.0, 0.5, -0.5, 0.25, 2.0, -1.5, 3.0, 0.125, -0.25, 0.75],
         diag=np.linspace(-1.0, 1.0, 8 * 16 * 8), dtype=dtype, device=dev,
     )
+    rng = np.random.default_rng(6)
+    full = list(itertools.product((-1, 0, 1), repeat=3))
+
+    def odd(shape):
+        return make_stencil_operator(
+            shape, full, rng.standard_normal(27),
+            diag=rng.standard_normal(int(np.prod(shape))), dtype=dtype, device=dev)
+
     return [
         ("N12_27pt", reg(12, "27")),
         ("N10_7pt", reg(10, "7")),
@@ -135,6 +161,13 @@ def kernel_cases(lt, dtype):
         ("6x10x14_asym_nodiag", aniso),
         ("8x16x8_diag", flat),
         ("N16_27pt_graded", reg(16, "27")),
+        # The level grids of the N=60 and N=120 irregular lattices.
+        ("N20_27pt", reg(20, "27")),
+        ("N30_27pt", reg(30, "27")),
+        ("N40_27pt", reg(40, "27")),
+        ("N60_27pt", reg(60, "27")),
+        ("3x5x7_27tap", odd((3, 5, 7))),
+        ("1x9x130_27tap", odd((1, 9, 130))),
         ("N160_27pt_flagship", reg(160, "27")),
     ]
 
@@ -182,8 +215,8 @@ def phase_kernels(lt):
     gen = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.float32, torch.float64):
         # fp32: the tolerance of the JAX package's kernel tests (the sums run
-        # in another order); fp64: both sides take the same taps in the same
-        # order and differ only by FMA contraction.
+        # in another order); fp64: the kernels sum the same taps in another
+        # order (the SpMV grouped by dz), ~1e-15 relative.
         atol_scale, rtol = tol[dtype]
         for name, op in kernel_cases(lt, dtype):
             m = op.shape[0]
@@ -207,16 +240,16 @@ def phase_kernels(lt):
     return max_abs
 
 
-#: Published fp32 peak of one H100 SXM outside the tensor cores (NVIDIA's
-#: data sheet, dense, 700 W), for the operations side of each bound.
+#: Published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W): its
+#: HBM3 rate and its fp32 rate outside the tensor cores.
+PEAK_HBM_BYTES = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 
 
-def bound(bytes_moved, flops, copy_gbs):
+def bound(bytes_moved, flops):
     """(bound_ms, bound_by): the larger of the compulsory bytes over the
-    card's memory rate, as this run measured it (``copy_rate``), and the
-    operations over the fp32 peak."""
-    t_bytes = bytes_moved / copy_gbs / 1e6
+    card's published HBM rate and the operations over its fp32 peak."""
+    t_bytes = bytes_moved / PEAK_HBM_BYTES * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -233,7 +266,8 @@ def stencil_csr(op):
                         for dz, dy, dx in op.offsets], dim=1)
     del p, z, y, x
     vals = op.weights[None, :].expand(m, k).clone()
-    vals[:, op.offsets.index((0, 0, 0))] += op.diag
+    if op.diag is not None:
+        vals[:, op.offsets.index((0, 0, 0))] += op.diag
     cols, order = cols.sort(dim=1)
     vals = vals.gather(1, order)
     del order
@@ -244,21 +278,44 @@ def stencil_csr(op):
 
 def copy_rate():
     """Device-to-device copy rate in GB/s (256 MB read + 256 MB write)."""
+    from lanczos_tpu_torch.utils.timing import eager_ms
+
     buf = torch.empty(64 * 2**20, device="cuda")
     dst = torch.empty_like(buf)
-    copy_ms, _ = cuda_ms(lambda: dst.copy_(buf))
+    copy_ms, _ = eager_ms(lambda: dst.copy_(buf))
     gbs = 2 * buf.numel() * 4 / copy_ms / 1e6
     print(f"  device-to-device copy (256 MB read + 256 MB write): {copy_ms:.4f} ms "
           f"= {gbs:.1f} GB/s")
     return gbs
 
 
-def phase_timing(lt):
+def kernel_row(label, fn, plain, lib, bytes_moved, flops, copy_gbs, floor_ms,
+               launches=50, eager_launches=100, plain_launches=100):
+    """Time a kernel, its plain version and its library yardstick; print
+    one line and return the JSON line's timing fields."""
+    from lanczos_tpu_torch.utils.timing import eager_ms
+
+    ms, eager, g_samples, e_samples = device_times(fn, launches, eager_launches)
+    plain_ms, _ = eager_ms(plain, launches=plain_launches)
+    lib_ms, lib_eager, _, _ = device_times(lib, launches, eager_launches)
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    copy_ms = bytes_moved / copy_gbs / 1e6
+    print(f"  {label:34s} graph {ms:.5f} ms ({bound_ms / ms:.1%} of its bound), eager {eager:.5f} ms; "
+          f"plain {plain_ms:.4f} ms (eager); library {lib_ms:.5f} ms (graph; eager {lib_eager:.5f}); "
+          f"bound {bound_ms:.6f} ms ({bound_by}; {bytes_moved} B at 3.35 TB/s); the bytes at the "
+          f"measured copy rate {copy_ms:.6f} ms ({copy_ms / ms:.1%}); launch floor {floor_ms:.5f} ms")
+    print(f"    samples graph {fmt(g_samples)} eager {fmt(e_samples)}")
+    return dict(ms=ms, eager_ms=eager, launch_floor_ms=floor_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_timing(lt, floor_ms):
     """Kernel, plain and cuSPARSE times at N=160^3, fp32; returns a dict of
     timing fields per kernel."""
     from lanczos_tpu_torch.ops import stencil_kernels as sk
 
-    print("== times at N=160^3, 27-point, fp32 (CUDA events, median of 5 x 100 calls)")
+    print("== times at N=160^3, 27-point, fp32 (graph: replays of 50 calls, median of 20; "
+          "eager: median of 5 x 100 calls; SpMM 5 and 10)")
     op = lt.build_regular_hamiltonian(
         160, 25.0, lt.deuteron_potential_3d, stencil="27", dtype=torch.float32,
         device="cuda",
@@ -271,33 +328,19 @@ def phase_timing(lt):
     xs = itertools.cycle([torch.randn(m, generator=gen, device="cuda") for _ in range(8)])
     X = torch.randn((m, 20), generator=gen, device="cuda")
     csr = stencil_csr(op)
-
-    def rot(fn):
-        return lambda: fn(op, next(xs))
-
     copy_gbs = copy_rate()
-    rows = {}
-    for kname, fn, ref, lib, bytes_per_call, flops in (
-        ("stencil_spmv", rot(sk.stencil_spmv), rot(sk.stencil_spmv_reference),
-         lambda: torch.mv(csr, next(xs)), 12 * m, 2 * 27 * m),
-        ("stencil_spmm", lambda: sk.stencil_spmm(op, X),
-         lambda: sk.stencil_spmm_reference(op, X), lambda: torch.sparse.mm(csr, X),
-         (8 * 20 + 4) * m, 2 * 27 * 20 * m),
-    ):
-        ms, samples = cuda_ms(fn)
-        plain_ms, plain_samples = cuda_ms(ref)
-        lib_ms, lib_samples = cuda_ms(lib)
-        bound_ms, bound_by = bound(bytes_per_call, flops, copy_gbs)
-        rows[kname] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=bound_ms, bound_by=bound_by)
-        label = kname if kname == "stencil_spmv" else f"{kname} b=20"
-        print(f"  {label:18s} kernel {ms:.4f} ms ({bytes_per_call / ms / 1e6:.1f} GB/s "
-              f"of compulsory traffic, {bytes_per_call / ms / 1e6 / copy_gbs:.1%} of copy); "
-              f"plain {plain_ms:.4f} ms; CSR {lib_ms:.4f} ms; bound {bound_ms:.4f} ms "
-              f"({bound_by}, at the copy rate); "
-              f"samples kernel {['%.4f' % s for s in samples]} "
-              f"plain {['%.4f' % s for s in plain_samples]} CSR {['%.4f' % s for s in lib_samples]}")
-    return rows
+    rows = {
+        "stencil_spmv": kernel_row(
+            "stencil_spmv", lambda: sk.stencil_spmv(op, next(xs)),
+            lambda: sk.stencil_spmv_reference(op, next(xs)), lambda: torch.mv(csr, next(xs)),
+            12 * m, 2 * 27 * m, copy_gbs, floor_ms),
+        "stencil_spmm": kernel_row(
+            "stencil_spmm b=20", lambda: sk.stencil_spmm(op, X),
+            lambda: sk.stencil_spmm_reference(op, X), lambda: torch.sparse.mm(csr, X),
+            (8 * 20 + 4) * m, 2 * 27 * 20 * m, copy_gbs, floor_ms,
+            launches=5, eager_launches=10, plain_launches=5),
+    }
+    return rows, copy_gbs
 
 
 def compare_eigs(label, vals, ref_vals, accepted, tol):
@@ -473,7 +516,7 @@ def interface_bytes(fi, elem):
     read once."""
     csr, _ = interface_csr(fi)
     n_src = int(torch.unique(csr.col_indices()).numel())
-    tables = sum(t.numel() * t.element_size() for t in (fi.cls, fi.taps, fi.block_class))
+    tables = sum(t.numel() * t.element_size() for t in (fi.cls, fi.taps, fi.row_class))
     return elem * (n_src + 2 * fi.num_rows + fi.num_taps) + tables
 
 
@@ -561,11 +604,15 @@ def phase_whole_operator(lt, ops, host):
         check(rel <= 1e-9, f"CompositeV2 {label} disagrees with the ELL assembly")
 
 
-def phase_interface_timing(lt, ops, host, copy_gbs):
-    """N=120, fp32: interface kernel, plain, CSR; whole matvec vs CSR mv."""
+def phase_interface_timing(lt, ops, host, copy_gbs, floor_ms):
+    """N=120, fp32: interface kernel, plain, CSR; the stencil SpMV on the
+    level grids; whole matvec vs CSR mv.  Returns the JSON line's timing
+    fields of the interface kernel."""
     from lanczos_tpu_torch.ops import interface_kernel as ik
+    from lanczos_tpu_torch.ops import stencil_kernels as sk
 
-    print("== times at N=120, fp32 (CUDA events, median of 5 x 100 calls; plain 5 x 10)")
+    print("== times at N=120, fp32 (graph: replays of 50 calls, median of 20; eager: median "
+          "of 5 x 100 calls; plain 5 x 10)")
     op, idx_map = ops[("N=120", torch.float32)]
     fi = op.fused
     m = op.shape[0]
@@ -579,18 +626,26 @@ def phase_interface_timing(lt, ops, host, copy_gbs):
     want = torch.mv(csr_i, x)
     check(bool(torch.allclose(got, want, rtol=1e-4, atol=2e-5 * float(want.abs().max()))),
           "interface CSR and kernel disagree")
-    ms, samples = cuda_ms(lambda: ik.apply_fused_interface(fi, next(xs), y))
-    plain_ms, plain_samples = cuda_ms(
-        lambda: ik.apply_fused_interface_reference(fi, next(xs), y), launches=10)
-    lib_ms, lib_samples = cuda_ms(lambda: torch.mv(csr_i, next(xs)))
     by = interface_bytes(fi, 4)
-    b_ms, b_by = bound(by, 2 * fi.tap_reads, copy_gbs)
     print(f"  apply_fused_interface: {fi.cls.shape[0]} classes, {fi.num_rows} rows, "
-          f"{fi.tap_reads} tap reads, {fi.block_class.numel()} blocks, {by} compulsory bytes")
-    print(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, CSR torch.mv of the interface rows "
-          f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}, at the copy rate)")
-    print(f"    samples kernel {['%.4f' % s for s in samples]} plain "
-          f"{['%.4f' % s for s in plain_samples]} CSR {['%.4f' % s for s in lib_samples]}")
+          f"{fi.tap_reads} tap reads, {by} compulsory bytes")
+    row = kernel_row(
+        "apply_fused_interface", lambda: ik.apply_fused_interface(fi, next(xs), y),
+        lambda: ik.apply_fused_interface_reference(fi, next(xs), y),
+        lambda: torch.mv(csr_i, next(xs)), by, 2 * fi.tap_reads, copy_gbs, floor_ms,
+        plain_launches=10)
+    # The stencil SpMV on the lattice's level grids, as the solve runs it.
+    for level in op.level_ops:
+        ml = level.shape[0]
+        xl = itertools.cycle([torch.randn(ml, generator=gen, device="cuda") for _ in range(8)])
+        csr_l = stencil_csr(level)
+        kernel_row(
+            f"stencil_spmv level {'x'.join(map(str, level.grid_shape))}",
+            lambda level=level, xl=xl: sk.stencil_spmv(level, next(xl)),
+            lambda level=level, xl=xl: sk.stencil_spmv_reference(level, next(xl)),
+            lambda csr_l=csr_l, xl=xl: torch.mv(csr_l, next(xl)),
+            (8 if level.diag is None else 12) * ml, 2 * len(level.offsets) * ml, copy_gbs,
+            floor_ms)
     # The whole operator against one CSR mv of the whole H.
     rows = host["N=120"][1]
     csr_h = csr_of_rows(rows, idx_map, m)
@@ -598,15 +653,17 @@ def phase_interface_timing(lt, ops, host, copy_gbs):
     got, want = op.matvec(x), torch.mv(csr_h, x)
     check(bool(torch.allclose(got, want, rtol=1e-4, atol=2e-5 * float(want.abs().max()))),
           "CompositeV2 matvec and the CSR of H disagree")
-    mv_ms, mv_samples = cuda_ms(lambda: op.matvec(next(xs)))
-    h_ms, h_samples = cuda_ms(lambda: torch.mv(csr_h, next(xs)))
+    mv_ms, mv_eager, mv_g, mv_e = device_times(lambda: op.matvec(next(xs)))
+    h_ms, h_eager, _, _ = device_times(lambda: torch.mv(csr_h, next(xs)))
     buckets = sum(t.numel() * t.element_size() for b in op.ifc_buckets for t in b)
     mv_bytes = 16 * m + by - 8 * fi.num_rows + buckets  # x, diag, keep read, y written
-    mv_bound, mv_by = bound(mv_bytes, 2 * 27 * m, copy_gbs)
-    print(f"  CompositeV2.matvec {mv_ms:.4f} ms vs CSR torch.mv of H ({csr_h.values().numel()} nnz) "
-          f"{h_ms:.4f} ms; bound {mv_bound:.6f} ms ({mv_by}, {mv_bytes} B at the copy rate)")
-    print(f"    samples matvec {['%.4f' % s for s in mv_samples]} CSR {['%.4f' % s for s in h_samples]}")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    mv_bound, mv_by = bound(mv_bytes, 2 * 27 * m)
+    print(f"  CompositeV2.matvec graph {mv_ms:.5f} ms, eager {mv_eager:.5f} ms (host-paced) vs "
+          f"CSR torch.mv of H ({csr_h.values().numel()} nnz) {h_ms:.5f} ms (eager {h_eager:.5f}); "
+          f"bound {mv_bound:.6f} ms ({mv_by}; {mv_bytes} B at 3.35 TB/s, "
+          f"{mv_bytes / copy_gbs / 1e6:.6f} ms at the measured copy rate)")
+    print(f"    samples matvec graph {fmt(mv_g)} eager {fmt(mv_e)}")
+    return row
 
 
 def lattice_start(op, idx_map, p, seed):
@@ -781,7 +838,8 @@ def main():
     phase_card()
     phase_build()
     max_abs = phase_kernels(lt)
-    times = phase_timing(lt)
+    floor_ms = launch_floor()
+    times, copy_gbs = phase_timing(lt, floor_ms)
     phase_golden(lt)
     flagship = phase_flagship(lt)
     print(f"== regular path done at {time.perf_counter() - t_start:.1f} s")
@@ -790,8 +848,7 @@ def main():
     lattices = irregular_lattices(lt)
     max_abs["apply_fused_interface"], ops, host = phase_interface_kernel(lt, lattices)
     phase_whole_operator(lt, ops, host)
-    print("== copy rate for the irregular times")
-    times["apply_fused_interface"] = phase_interface_timing(lt, ops, host, copy_rate())
+    times["apply_fused_interface"] = phase_interface_timing(lt, ops, host, copy_gbs, floor_ms)
     phase_irregular_golden(lt, ops, host)
     phase_two_sided(lt, ops, host)
     del ops
@@ -811,8 +868,7 @@ def main():
     ]
     for k in kernels:
         t = times[k["name"]]
-        k.update(max_abs_err=max_abs[k["name"]], ms=t["ms"], plain_ms=t["plain_ms"],
-                 bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"])
+        k.update(max_abs_err=max_abs[k["name"]], **t)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

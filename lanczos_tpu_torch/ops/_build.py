@@ -28,9 +28,11 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 __all__ = [
     "BuildInfo", "nvcc_path", "load_stencil_library", "load_interface_library",
-    "build_all",
+    "build_all", "launch_on",
 ]
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
@@ -72,10 +74,9 @@ def nvcc_path() -> str:
     )
 
 
-def _build(source: Path, stem: str) -> BuildInfo:
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+def _build(source: Path, stem: str, extra_flags=()) -> BuildInfo:
+    flags = (*NVCC_FLAGS, *extra_flags)
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{stem}_{digest}.so"
     log_path = lib.with_suffix(".log")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -85,7 +86,7 @@ def _build(source: Path, stem: str) -> BuildInfo:
             log = log_path.read_text() if log_path.is_file() else ""
             return BuildInfo(lib, 0.0, log, cached=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+        cmd = [nvcc_path(), *flags, "-o", str(tmp), str(source)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
         seconds = time.perf_counter() - t0
@@ -109,13 +110,16 @@ def load_stencil_library():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for dt in ("f32", "f64"):
         spmv = getattr(lib, f"stencil_spmv_{dt}")
-        # x, diag, w, y, nz, ny, nx, offsets, k, stream
-        spmv.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr, i32, ptr]
+        # x, diag, y, nz, ny, nx, z_chunk, w27 (host doubles), stream
+        spmv.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr, ptr]
         spmv.restype = i32
         spmm = getattr(lib, f"stencil_spmm_{dt}")
         # x, diag, w, y, nz, ny, nx, b, offsets, k, stream
         spmm.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, i32, ptr]
         spmm.restype = i32
+    for name in ("resident_f32", "resident_f64", "tile_y", "tile_x"):
+        getattr(lib, f"stencil_spmv_{name}").argtypes = []
+        getattr(lib, f"stencil_spmv_{name}").restype = i32
     return lib, info
 
 
@@ -125,12 +129,10 @@ def load_interface_library():
     info = _build(_CSRC / "interface.cu", "interface")
     lib = ctypes.CDLL(str(info.path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fused_interface_threads.argtypes = []
-    lib.fused_interface_threads.restype = i32
     for dt in ("f32", "f64"):
         fn = getattr(lib, f"fused_interface_{dt}")
-        # x, y, b, cls, taps, w, block_class, n_blocks, stream
-        fn.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, ptr]
+        # x, y, b, n_rows, cls, taps, w, row_class, stream
+        fn.argtypes = [ptr, ptr, i32, i32, ptr, ptr, ptr, ptr, ptr]
         fn.restype = i32
     return lib, info
 
@@ -144,3 +146,13 @@ def build_all():
     with ThreadPoolExecutor(len(loaders)) as pool:
         futures = {name: pool.submit(fn) for name, fn in loaders.items()}
         return {name: f.result()[1] for name, f in futures.items()}
+
+
+def launch_on(device, fn, *args):
+    """Call the C launcher ``fn(*args, stream)`` with ``device`` current and
+    its current stream, entering ``torch.cuda.device`` only when ``device``
+    is not already the current one; returns what ``fn`` returns."""
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return fn(*args, torch.cuda.current_stream().cuda_stream)
+    return fn(*args, torch.cuda.current_stream().cuda_stream)

@@ -240,6 +240,9 @@ class CompositeV2(LinearOperator):
             self.register_buffer(f"bucket{i}_ids", blk_ids)
             self.register_buffer(f"bucket{i}_w", blk_w)
         self.level_meta = tuple(level_meta)
+        self._level_slices = tuple(
+            slice(start, start + int(np.prod(gshape))) for _, gshape, start in self.level_meta
+        )
         self.grid_meta = tuple(grid_meta)
         self.symmetric = symmetric
         self.transpose_op = transpose_op
@@ -270,8 +273,7 @@ class CompositeV2(LinearOperator):
         x = x.contiguous()
         block = x.ndim == 2
         y = torch.empty_like(x)
-        for (a, gshape, start), op in zip(self.level_meta, self.level_ops):
-            sl = slice(start, start + int(np.prod(gshape)))
+        for sl, op in zip(self._level_slices, self.level_ops):
             keep = self.keep[sl, None] if block else self.keep[sl]
             # The mask zeroes interface rows (replaced below) and dead slots
             # (annihilated).

@@ -7,8 +7,9 @@ Counterpart of ``lanczos_tpu/ops/interface_kernel.py``:
   (``grid_meta``): every interface class, at any stride.
 * :func:`apply_fused_interface` replaces the Pallas kernel of the same name:
   it adds every class's weighted tap sum into ``y``, in place, with one
-  launch of ``csrc/interface.cu`` (one thread per class row; see the
-  source's header for the design and what bounds it).
+  launch of ``csrc/interface.cu`` (rows of all classes packed densely, a
+  group of lanes per row splitting its taps; see the source's header for
+  the design and what bounds it).
 * :func:`apply_fused_interface_reference` is the plain PyTorch version:
   strided slices of the level regions, summed in tap order, added in place.
 * :class:`InterfacePlan` and :func:`plan_interface_kernel` are the JAX
@@ -27,6 +28,7 @@ incremented after a successful launch and nowhere else.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -34,6 +36,7 @@ import torch
 from torch import nn
 
 from .._util import as_torch_dtype
+from ._build import launch_on
 
 __all__ = [
     "InterfacePlan",
@@ -44,9 +47,8 @@ __all__ = [
     "apply_fused_interface_reference",
 ]
 
-#: Threads per block of the CUDA kernel (kThreads in csrc/interface.cu);
-#: the block -> class table is cut to it.
-THREADS = 128
+#: int32 fields of a class in ``FusedInterface.cls`` (three int4 loads).
+CLASS_FIELDS = 12
 
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -148,17 +150,31 @@ def class_windows(grid_meta, level_meta):
     return out
 
 
+def _linear_form(base, ny, nx, start, step):
+    """(q0, Z, Y, X) with ``q0 + Z*iz + Y*iy + X*ix`` the flat slot of
+    window point (iz, iy, ix): ``base + ((start + step*i) . (ny*nx, nx, 1))``."""
+    return (
+        base + (start[0] * ny + start[1]) * nx + start[2],
+        step[0] * ny * nx,
+        step[1] * nx,
+        step[2],
+    )
+
+
 class FusedInterface(nn.Module):
     """Every strided interface class of an operator, as the CUDA kernel's
     tables (buffers, built once with the operator).
 
-    ``cls`` (C, 16) int32, ``taps`` (T, 9) int32 and ``block_class`` (B,)
-    int32 hold the layout described in ``csrc/interface.cu``; ``tap_w``
-    (T,) holds the classes' tap weights, class after class, in the
-    operator's dtype.  A CUDA thread reads at any stride, so every class
-    of ``grid_meta`` is in the tables: none is left to another path.
-    Building them checks on the host that no two classes write the same
-    slot, so the kernel runs without atomics.
+    The layout is the one described in ``csrc/interface.cu``: ``cls`` (C,
+    12) int32 holds each class's packed-row range, window shape and output
+    linear form; ``taps`` (T, 4) int32 each tap's linear form ``(q0, Z, Y,
+    X)``; ``row_class`` (R,) int32 the class of each packed row (a class's
+    rows contiguous, classes in ``grid_meta`` order); ``tap_w`` (T,) the
+    classes' tap weights, class after class, in the operator's dtype.  A
+    CUDA thread reads at any stride, so every class of ``grid_meta`` is in
+    the tables: none is left to another path.  Building them checks on the
+    host that every address fits in int32 and that no two classes write the
+    same slot, so the kernel runs without atomics.
     """
 
     def __init__(self, grid_meta, level_meta, grid_w, dtype, device):
@@ -168,30 +184,37 @@ class FusedInterface(nn.Module):
         m = sum(int(np.prod(ext)) for _, ext, _ in level_meta)
         if m >= 2**31:
             raise ValueError(f"operator of {m} slots exceeds the kernel's int32 tables")
-        cls_rows, tap_rows, block_class = [], [], []
-        slots = []
+        self.num_slots = m
+        cls_rows, tap_rows, tap_acc, row_class, slots = [], [], [], [], []
         for c, (base, (ny, nx), o3, step, acc, ktaps) in enumerate(
             class_windows(grid_meta, level_meta)
         ):
             rows = int(np.prod(acc))
-            cls_rows.append([base, ny, nx, *o3, *step, *acc, len(tap_rows),
-                             len(ktaps), len(block_class), 0])
+            out = _linear_form(base, ny, nx, o3, step)
+            t0 = len(tap_rows)
             for sbase, (sny, snx), s3, stride in ktaps:
-                tap_rows.append([sbase, sny, snx, *s3, *stride])
-            block_class.extend([c] * -(-rows // THREADS))
-            iz, iy, ix = np.meshgrid(*(np.arange(a) for a in acc), indexing="ij")
-            slots.append(
-                base + ((o3[0] + step[0] * iz) * ny + o3[1] + step[1] * iy) * nx
-                + o3[2] + step[2] * ix
-            )
+                tap_rows.append(_linear_form(sbase, sny, snx, s3, stride))
+            tap_acc.extend([acc] * len(ktaps))
+            cls_rows.append([len(row_class), acc[1] * acc[2], acc[2], t0,
+                             len(tap_rows), *out, 0, 0, 0])
+            row_class.extend([c] * rows)
+            iz, iy, ix = (a.reshape(-1) for a in np.meshgrid(
+                *(np.arange(a) for a in acc), indexing="ij"))
+            slots.append(out[0] + out[1] * iz + out[2] * iy + out[3] * ix)
+        forms = np.asarray(tap_rows + [row[5:9] for row in cls_rows], np.int64).reshape(-1, 4)
+        last = np.asarray(tap_acc + [g[3] for g in self.grid_meta], np.int64).reshape(-1, 3) - 1
+        if len(forms) and not (
+            forms.min() >= 0 and (forms[:, 0] + (forms[:, 1:] * last).sum(axis=1)).max() < m
+        ):
+            raise ValueError("an interface tap or output window leaves the operator's slots")
         if slots:
-            slots = np.concatenate([s.reshape(-1) for s in slots])
+            slots = np.concatenate(slots)
             if len(np.unique(slots)) != len(slots):
                 raise AssertionError(
                     "interface classes write overlapping output slots; the "
                     "kernel has one writer per slot and would race"
                 )
-        self.num_rows = len(slots)
+        self.num_rows = len(row_class)
         self.num_taps = len(tap_rows)
         self._tap_counts = tuple(len(taps) for *_, taps in self.grid_meta)
 
@@ -199,11 +222,9 @@ class FusedInterface(nn.Module):
             a = np.asarray(rows, dtype=np.int64).reshape(-1, width)
             return torch.as_tensor(a, dtype=torch.int32, device=device)
 
-        self.register_buffer("cls", table(cls_rows, 16))
-        self.register_buffer("taps", table(tap_rows, 9))
-        self.register_buffer(
-            "block_class", torch.as_tensor(block_class, dtype=torch.int32, device=device)
-        )
+        self.register_buffer("cls", table(cls_rows, CLASS_FIELDS))
+        self.register_buffer("taps", table(tap_rows, 4))
+        self.register_buffer("row_class", table(row_class, 1).reshape(-1))
         w = [torch.as_tensor(v, dtype=as_torch_dtype(dtype), device=device) for v in grid_w]
         self.register_buffer(
             "tap_w", torch.cat(w) if w else torch.zeros(0, dtype=as_torch_dtype(dtype), device=device)
@@ -255,10 +276,9 @@ def apply_fused_interface_reference(fi: FusedInterface, x: torch.Tensor, y: torc
 
 
 def _check(fi: FusedInterface, x: torch.Tensor, y: torch.Tensor) -> None:
-    m = sum(int(np.prod(ext)) for _, ext, _ in fi.level_meta)
-    if x.ndim not in (1, 2) or x.shape[0] != m or x.shape != y.shape:
+    if x.ndim not in (1, 2) or x.shape[0] != fi.num_slots or x.shape != y.shape:
         raise ValueError(
-            f"interface kernel takes (M,) or (M, b) x and y with M={m}, got "
+            f"interface kernel takes (M,) or (M, b) x and y with M={fi.num_slots}, got "
             f"{tuple(x.shape)} and {tuple(y.shape)}"
         )
     if x.dtype not in _DTYPES or y.dtype != x.dtype or fi.tap_w.dtype != x.dtype:
@@ -274,6 +294,16 @@ def _check(fi: FusedInterface, x: torch.Tensor, y: torch.Tensor) -> None:
         )
 
 
+@functools.lru_cache(maxsize=None)
+def _kernels():
+    """{dtype: C launcher} of ``csrc/interface.cu``, built and loaded once.
+    The tables do not depend on the kernel's block geometry."""
+    from ._build import load_interface_library
+
+    lib, _ = load_interface_library()
+    return {dt: getattr(lib, f"fused_interface_{tag}") for dt, tag in _DTYPES.items()}
+
+
 def apply_fused_interface(fi: FusedInterface, x: torch.Tensor, y: torch.Tensor):
     """Add every class's contribution into ``y`` in place (flat (M,)
     vectors or row-major (M, b) blocks) and return ``y``."""
@@ -282,25 +312,13 @@ def apply_fused_interface(fi: FusedInterface, x: torch.Tensor, y: torch.Tensor):
         return apply_fused_interface_reference(fi, x, y)
     if x.device.type != "cuda":
         raise ValueError(f"interface kernel runs on CUDA tensors, got {x.device}")
-    n_blocks = fi.block_class.shape[0]
-    if n_blocks == 0:
+    if fi.num_rows == 0:
         return y
-    from ._build import load_interface_library
-
-    lib, _ = load_interface_library()
-    if lib.fused_interface_threads() != THREADS:
-        raise RuntimeError(
-            f"csrc/interface.cu runs {lib.fused_interface_threads()} threads a "
-            f"block; the tables were cut for {THREADS}"
-        )
-    fn = getattr(lib, f"fused_interface_{_DTYPES[x.dtype]}")
-    b = 1 if x.ndim == 1 else x.shape[1]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            x.data_ptr(), y.data_ptr(), b, fi.cls.data_ptr(), fi.taps.data_ptr(),
-            fi.tap_w.data_ptr(), fi.block_class.data_ptr(), n_blocks, stream,
-        )
+    err = launch_on(
+        x.device, _kernels()[x.dtype], x.data_ptr(), y.data_ptr(),
+        1 if x.ndim == 1 else x.shape[1], fi.num_rows, fi.cls.data_ptr(),
+        fi.taps.data_ptr(), fi.tap_w.data_ptr(), fi.row_class.data_ptr(),
+    )
     if err != 0:
         raise RuntimeError(f"fused_interface launch failed with CUDA error {err}")
     apply_fused_interface.launches += 1

@@ -229,6 +229,7 @@ class StencilOperator(LinearOperator):
         self.grid_shape = tuple(int(n) for n in grid_shape)
         self.offsets = _normalize_offsets(offsets)
         self.graded = graded
+        kernel_supported(self)  # builds the kernels' cache: weights read once, here
 
     @property
     def shape(self):

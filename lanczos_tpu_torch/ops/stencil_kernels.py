@@ -9,10 +9,12 @@ Counterpart of ``lanczos_tpu/ops/pallas_kernels.py``:
 
 Both kernels live in ``csrc/stencil.cu`` (built by ``ops/_build.py``).  What
 bounds them on the H100 is bytes: the compulsory traffic is a read of x, a
-read of diag and a write of y, 12 B/point in fp32.  Their design is one
-thread per output value with the neighbour reuse left to L1/L2 and the
-periodic wrap done in the index math (see the source's header); the TPU
-kernel's slab/halo/flat-plane layout is not carried over.
+read of diag and a write of y, 12 B/point in fp32.  The SpMV marches along
+z with a shared-memory plane ring, each block owning a 32 x 8 tile of the
+(y, x) plane over a chunk of planes that :func:`spmv_z_chunk` picks from
+the grid and the card's resident blocks; the SpMM is one thread per output
+value with the neighbour reuse left to L1/L2 (see the source's header).
+The TPU kernel's slab/halo/flat-plane layout is not carried over.
 
 Dispatch is by the tensor's device only: a CPU tensor goes to the plain
 version (``*_reference``: a sum of ``torch.roll``s over the taps plus the
@@ -20,13 +22,19 @@ diagonal), a CUDA tensor launches the kernel or raises.  There is no
 fallback and no switch.  Each wrapper counts its kernel launches in
 ``<wrapper>.launches``, incremented where the kernel is launched and
 nowhere else, so a run can show that its main path went through the kernel.
+What a launch needs from the operator (the SpMV's dense weights and z-chunk,
+the SpMM's offsets array and contiguous weights) is kept on the operator
+and renewed when its weights or diag change.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
+
+from ._build import launch_on
 
 __all__ = [
     "MAX_TAPS",
@@ -35,6 +43,7 @@ __all__ = [
     "stencil_spmm",
     "stencil_spmv_reference",
     "stencil_spmm_reference",
+    "spmv_z_chunk",
 ]
 
 #: Taps the CUDA kernel takes (kMaxTaps in csrc/stencil.cu): the full
@@ -43,16 +52,83 @@ MAX_TAPS = 27
 
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
+#: The SpMV's tile of the (y, x) plane (kTY x kTX in csrc/stencil.cu),
+#: checked against the library when it loads.
+TILE_Y, TILE_X = 8, 32
+
+
+class _OpCache:
+    """What the kernels need from one operator, worked out from its
+    geometry, weights and diag: whether the kernels cover it, the SpMV's 27
+    dense weights on the host, and each kernel's launch arguments per dtype
+    and device (``_launch_args``).  It holds the weights and diag tensors
+    themselves and their versions, so a replaced or modified tensor is
+    noticed whatever address it has (:func:`_cache`)."""
+
+    __slots__ = ("grid_shape", "offsets", "weights", "diag", "versions", "supported",
+                 "w27", "launches")
+
+    def __init__(self, op):
+        self.grid_shape, self.offsets = op.grid_shape, op.offsets
+        self.weights, self.diag = op.weights, op.diag
+        self.versions = _versions(op)
+        self.supported = (
+            len(op.grid_shape) == 3
+            and len(op.offsets) <= MAX_TAPS
+            and all(all(abs(o) <= 1 for o in off) for off in op.offsets)
+        )
+        dense = [0.0] * MAX_TAPS
+        if self.supported:
+            for (dz, dy, dx), wk in zip(op.offsets, op.weights.tolist()):
+                dense[(dz + 1) * 9 + (dy + 1) * 3 + dx + 1] += wk
+        self.w27 = (ctypes.c_double * MAX_TAPS)(*dense)
+        self.launches = {}
+
+    def describes(self, op) -> bool:
+        return (self.offsets is op.offsets and self.grid_shape is op.grid_shape
+                and self.weights is op.weights and self.diag is op.diag
+                and self.versions == _versions(op))
+
+
+def _versions(op):
+    return (op.weights._version, None if op.diag is None else op.diag._version)
+
+
+def _cache(op) -> _OpCache:
+    """``op``'s kernel cache, rebuilt when its geometry, weights or diag
+    changed.  StencilOperator builds it with the operator, so the host read
+    of the weights (a sync on a card) happens then, not at the first launch."""
+    c = op.__dict__.get("_stencil_kernel_cache")
+    if c is None or not c.describes(op):
+        c = op.__dict__["_stencil_kernel_cache"] = _OpCache(op)
+    return c
+
 
 def kernel_supported(op) -> bool:
     """True when the CUDA kernel covers ``op``: a 3D grid with at most
     MAX_TAPS taps, every offset in {-1,0,1}^3 (the Pallas kernel's domain,
     ``pallas_kernels.py:_prep``)."""
-    return (
-        len(op.grid_shape) == 3
-        and len(op.offsets) <= MAX_TAPS
-        and all(all(abs(o) <= 1 for o in off) for off in op.offsets)
-    )
+    return _cache(op).supported
+
+
+def spmv_z_chunk(grid_shape, resident_blocks: int) -> int:
+    """Output planes per block of the SpMV on a (nz, ny, nx) grid, for a
+    card that holds ``resident_blocks`` of its blocks at once.
+
+    Each block of a chunk of zc planes reads zc + 2 input planes, and the
+    blocks run in waves of ``resident_blocks``; the chunk minimises (waves)
+    x (zc + 2), preferring fewer, longer chunks on a tie.  Small grids get
+    short chunks (down to one plane) so that they still fill the card.
+    """
+    nz, ny, nx = grid_shape
+    tiles = -(-nx // TILE_X) * -(-ny // TILE_Y)
+    best = None
+    for n in range(1, nz + 1):
+        zc = -(-nz // n)
+        cost = -(-tiles * -(-nz // zc) // max(resident_blocks, 1)) * (zc + 2)
+        if best is None or cost < best[0]:
+            best = (cost, zc)
+    return best[1]
 
 
 def stencil_spmv_reference(op, x: torch.Tensor) -> torch.Tensor:
@@ -100,29 +176,73 @@ def _check(op, x: torch.Tensor, shape) -> None:
             )
 
 
-def _launch(fn_name: str, op, x: torch.Tensor, b) -> torch.Tensor:
-    """Launch ``fn_name`` on x's device and stream; raise on a refused launch."""
-    if x.device.type != "cuda":
-        raise ValueError(f"stencil kernel runs on CUDA tensors, got {x.device}")
+@functools.lru_cache(maxsize=None)
+def _library():
+    """``csrc/stencil.cu``'s library, built and loaded once; its SpMV tile
+    is checked against TILE_Y x TILE_X here, not per launch."""
     from ._build import load_stencil_library
 
     lib, _ = load_stencil_library()
-    fn = getattr(lib, f"{fn_name}_{_DTYPES[x.dtype]}")
-    nz, ny, nx = op.grid_shape
-    k = len(op.offsets)
-    offs = (ctypes.c_int * (3 * k))(*(o for off in op.offsets for o in off))
-    weights = op.weights.contiguous()
+    tile = (lib.stencil_spmv_tile_y(), lib.stencil_spmv_tile_x())
+    if tile != (TILE_Y, TILE_X):
+        raise RuntimeError(f"csrc/stencil.cu tiles the plane {tile}, the host expects "
+                           f"{(TILE_Y, TILE_X)}")
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(tag: str, device_index: int) -> int:
+    """SpMV blocks the card holds at once (SMs x blocks per SM), asked of
+    the CUDA runtime once per dtype and device."""
+    fn = getattr(_library(), f"stencil_spmv_resident_{tag}")
+    with torch.cuda.device(device_index):
+        n = fn()
+    if n <= 0:
+        raise RuntimeError(f"occupancy query of the SpMV kernel failed with CUDA error {-n}")
+    return n
+
+
+def _launch_args(name: str, op, x: torch.Tensor):
+    """(C launcher, diag, kernel arguments) of kernel ``name`` for ``op`` on
+    x's dtype and device: for the SpMV its z-chunk and dense host weights,
+    for the SpMM its contiguous weights, offsets array and tap count.  Kept
+    in the operator's cache, which a change of weights or diag renews."""
+    cache = _cache(op)
+    key = (name, x.dtype, x.device)
+    hit = cache.launches.get(key)
+    if hit is not None:
+        return hit
+    tag = _DTYPES[x.dtype]
+    fn = getattr(_library(), f"{name}_{tag}")
     diag = None if op.diag is None else op.diag.contiguous()
+    if name == "stencil_spmv":
+        zc = spmv_z_chunk(op.grid_shape, _resident_blocks(tag, x.device.index))
+        args = (fn, diag, (zc, cache.w27))
+    else:
+        k = len(op.offsets)
+        offs = (ctypes.c_int * (3 * k))(*(o for off in op.offsets for o in off))
+        args = (fn, diag, (op.weights.contiguous(), offs, k))
+    cache.launches[key] = args
+    return args
+
+
+def _launch(name: str, op, x: torch.Tensor, b) -> torch.Tensor:
+    """Launch kernel ``name`` on x's device and stream; raise on a refused
+    launch."""
+    if x.device.type != "cuda":
+        raise ValueError(f"stencil kernel runs on CUDA tensors, got {x.device}")
+    fn, diag, extra = _launch_args(name, op, x)
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        sizes = (nz, ny, nx) if b is None else (nz, ny, nx, b)
-        err = fn(
-            x.data_ptr(), None if diag is None else diag.data_ptr(),
-            weights.data_ptr(), y.data_ptr(), *sizes, offs, k, stream,
-        )
+    d = None if diag is None else diag.data_ptr()
+    if name == "stencil_spmv":
+        zc, w27 = extra
+        err = launch_on(x.device, fn, x.data_ptr(), d, y.data_ptr(), *op.grid_shape, zc, w27)
+    else:
+        weights, offs, k = extra
+        err = launch_on(x.device, fn, x.data_ptr(), d, weights.data_ptr(), y.data_ptr(),
+                        *op.grid_shape, b, offs, k)
     if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed with CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     return y
 
 

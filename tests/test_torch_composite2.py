@@ -181,7 +181,14 @@ def test_class_windows_are_disjoint(pair):
         fi = A.fused
         acc = [int(np.prod(g[3])) for g in A.grid_meta]
         assert fi.num_rows == sum(acc)
-        assert fi.block_class.shape[0] == sum(-(-r // ik.THREADS) for r in acc)
+        # Rows of every class packed densely, class after class, with no
+        # block reserved to one class: the kernel's grid follows the rows
+        # alone.
+        row_class = fi.row_class.numpy()
+        np.testing.assert_array_equal(row_class, np.repeat(np.arange(len(acc)), acc))
+        np.testing.assert_array_equal(fi.cls[:, 0].numpy(), np.cumsum([0] + acc[:-1]))
+        np.testing.assert_array_equal(fi.cls[:, 4].numpy(),
+                                      np.cumsum([len(g[4]) for g in A.grid_meta]))
     # Two classes that write the same window are refused: the kernel has
     # one writer per slot and would race.
     with pytest.raises(AssertionError, match="overlapping"):
@@ -217,7 +224,7 @@ def test_from_jax_round_trips(pair):
     C = from_jax(J, device="cpu")
     assert isinstance(C, pt.CompositeV2) and isinstance(C.transpose_op, pt.CompositeV2)
     for a, b in ((C, P), (C.transpose_op, P.transpose_op)):
-        for name in ("cls", "taps", "block_class", "tap_w"):
+        for name in ("cls", "taps", "row_class", "tap_w"):
             assert torch.equal(getattr(a.fused, name), getattr(b.fused, name)), name
     x = torch.from_numpy(_x(P, 13))
     np.testing.assert_array_equal(C.matvec(x).numpy(), P.matvec(x).numpy())

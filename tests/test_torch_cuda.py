@@ -30,13 +30,25 @@ def _require_card():
 
 
 def _operators(dtype):
-    """The shapes of tests/test_pallas.py, on the card."""
+    """The shapes of tests/test_pallas.py, the level grids of the N=60 and
+    N=120 irregular lattices (20^3, 30^3, 40^3, 60^3) and two odd grids
+    (one plane; rows that are no multiple of 16 bytes), on the card."""
     dev = "cuda"
     reg = [
         pt.build_regular_hamiltonian(
             n, 25.0, pt.deuteron_potential_3d, stencil=s, dtype=dtype, device=dev
         )
-        for n, s in ((12, "27"), (10, "7"), (8, "27"), (16, "27"))
+        for n, s in ((12, "27"), (10, "7"), (8, "27"), (16, "27"),
+                     (20, "27"), (30, "27"), (40, "27"), (60, "27"))
+    ]
+    rng = np.random.default_rng(6)
+    full = [(dz, dy, dx) for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+    odd = [
+        make_stencil_operator(
+            shape, full, rng.standard_normal(27),
+            diag=rng.standard_normal(int(np.prod(shape))), dtype=dtype, device=dev,
+        )
+        for shape in ((3, 5, 7), (1, 9, 130))
     ]
     aniso = make_stencil_operator(
         (6, 10, 14), [(0, 0, 0), (1, 0, 0), (0, -1, 0), (0, 0, 1), (-1, 1, -1)],
@@ -49,7 +61,7 @@ def _operators(dtype):
         [1.0, 0.5, -0.5, 0.25, 2.0, -1.5, 3.0, 0.125, -0.25, 0.75],
         diag=np.linspace(-1.0, 1.0, 8 * 16 * 8), dtype=dtype, device=dev,
     )
-    return reg + [aniso, flat]
+    return reg + [aniso, flat] + odd
 
 
 @pytest.mark.cuda
@@ -57,7 +69,7 @@ def _operators(dtype):
 def test_cuda_kernels_match_reference(dtype):
     _require_card()
     # fp32: test_pallas.py's tolerance (another summation order, FMA);
-    # fp64: the same tap order, FMA contraction only.
+    # fp64: the SpMV sums the taps grouped by dz, ~1e-15 relative.
     atol_scale, rtol = (2e-5, 1e-4) if dtype == torch.float32 else (1e-12, 1e-12)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for op in _operators(dtype):
@@ -133,7 +145,8 @@ def _mixed_v2(dtype, device):
 def test_cuda_interface_kernel_matches_reference(dtype):
     _require_card()
     # fp32: the stencil kernels' tolerance (FMA, another rounding of each
-    # term); fp64: the same taps in the same order, FMA contraction only.
+    # term); fp64: the kernel sums each row's taps in interleaved
+    # per-lane partial sums joined by a butterfly, ~1e-15 relative.
     atol_scale, rtol = (2e-5, 1e-4) if dtype == torch.float32 else (1e-12, 1e-12)
     op, _ = _mixed_v2(dtype, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
