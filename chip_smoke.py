@@ -12,7 +12,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. Each stencil kernel against its plain PyTorch version, on the same CUDA
    tensors, in fp32 and fp64, at the test shapes, the level grids of the
    N=60 and N=120 lattices (20^3, 30^3, 40^3, 60^3), two odd grids and the
-   flagship N=160^3; then kernel, plain and cuSPARSE CSR times at N=160^3.
+   flagship N=160^3: the SpMV, and the SpMM at b = 1, 3, 5, 8 and 20 (at b
+   = 8 and 20 also on a block that is not 16-byte aligned); then kernel,
+   plain and cuSPARSE CSR times at N=160^3 (the SpMM at b=20 in fp32 and
+   fp64).
 4. ``eigsh`` at N=64 (k=8, n=150, fp32) against golden eigenvalues that the
    JAX package computed in fp64 (``lanczos_tpu_torch/data/golden_eigsh_n64.json``).
 5. The flagship: N=160^3, L=25 fm, 27-point, ``eigsh(k=20, n=400, "SA")``
@@ -25,8 +28,9 @@ The irregular multi-resolution lattice (the reference's ``Irr3Ddeuteron.py``):
    lattices; at N=60 in fp64 the whole CompositeV2 (matvec, rmatvec)
    against the port's ELL assembly of the same lattice.
 7. Times at N=120, fp32: the interface kernel, its plain version and a
-   cuSPARSE CSR product of the interface rows; the stencil SpMV on the two
-   level grids; the whole CompositeV2 matvec and a CSR ``torch.mv`` of the
+   cuSPARSE CSR product of the interface rows; the stencil SpMV, and the
+   SpMM at b=8 (the width of the Arnoldi residual block), on the two level
+   grids; the whole CompositeV2 matvec and a CSR ``torch.mv`` of the
    whole H; each with its bound (compulsory bytes over the card's
    published HBM rate, 3.35 TB/s, or operations over its fp32 peak) and,
    beside it, the bytes' time at the copy rate measured in the same run.
@@ -201,7 +205,7 @@ def phase_build():
               f"({'already built' if info.cached else 'built'}; "
               f"nvcc {info.seconds:.2f} s)")
         for line in info.log.splitlines():
-            if "ptxas" in line:
+            if "ptxas" in line or "spill" in line:
                 print(f"  {line.strip()}")
 
 
@@ -213,16 +217,22 @@ def phase_kernels(lt):
     tol = {torch.float32: (2e-5, 1e-4), torch.float64: (1e-12, 1e-12)}
     max_abs = {"stencil_spmv": 0.0, "stencil_spmm": 0.0}
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # (kernel, b, offset): a block at offset 1 starts one element into its
+    # buffer, so it is not 16-byte aligned and the SpMM takes element copies.
+    launches = [("stencil_spmv", None, 0)] + [("stencil_spmm", b, 0) for b in (1, 3, 5, 8, 20)] + [
+        ("stencil_spmm", 8, 1), ("stencil_spmm", 20, 1)]
     for dtype in (torch.float32, torch.float64):
         # fp32: the tolerance of the JAX package's kernel tests (the sums run
         # in another order); fp64: the kernels sum the same taps in another
-        # order (the SpMV grouped by dz), ~1e-15 relative.
+        # order (grouped by dz), ~1e-15 relative.
         atol_scale, rtol = tol[dtype]
         for name, op in kernel_cases(lt, dtype):
             m = op.shape[0]
-            for kname, b in (("stencil_spmv", None), ("stencil_spmm", 3), ("stencil_spmm", 20)):
+            for kname, b, offset in launches:
                 shape = (m,) if b is None else (m, b)
-                x = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+                buf = torch.randn(int(np.prod(shape)) + offset, generator=gen, device="cuda",
+                                  dtype=dtype)
+                x = buf[offset:].view(shape)
                 if b is None:
                     y, y_ref = sk.stencil_spmv(op, x), sk.stencil_spmv_reference(op, x)
                 else:
@@ -233,24 +243,26 @@ def phase_kernels(lt):
                 ok = bool((err <= atol_scale * scale + rtol * y_ref.abs()).all())
                 abs_err = float(err.max())
                 max_abs[kname] = max(max_abs[kname], abs_err)
-                label = kname if b is None else f"{kname} b={b}"
-                print(f"  {str(dtype)[6:]:8s} {name:22s} {label:18s} "
+                label = kname if b is None else f"{kname} b={b}{' unaligned' if offset else ''}"
+                print(f"  {str(dtype)[6:]:8s} {name:22s} {label:28s} "
                       f"{abs_err:.3e} {abs_err / scale:.3e} {'ok' if ok else 'MISMATCH'}")
                 check(ok, f"{label} disagrees with its plain version on {name} {dtype}")
     return max_abs
 
 
 #: Published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W): its
-#: HBM3 rate and its fp32 rate outside the tensor cores.
+#: HBM3 rate and its fp32 and fp64 rates outside the tensor cores.
 PEAK_HBM_BYTES = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_FP64_FLOPS = 34e12
 
 
-def bound(bytes_moved, flops):
+def bound(bytes_moved, flops, peak_flops=PEAK_FP32_FLOPS):
     """(bound_ms, bound_by): the larger of the compulsory bytes over the
-    card's published HBM rate and the operations over its fp32 peak."""
+    card's published HBM rate and the operations over its peak (fp32 unless
+    given)."""
     t_bytes = bytes_moved / PEAK_HBM_BYTES * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -290,7 +302,7 @@ def copy_rate():
 
 
 def kernel_row(label, fn, plain, lib, bytes_moved, flops, copy_gbs, floor_ms,
-               launches=50, eager_launches=100, plain_launches=100):
+               launches=50, eager_launches=100, plain_launches=100, peak_flops=PEAK_FP32_FLOPS):
     """Time a kernel, its plain version and its library yardstick; print
     one line and return the JSON line's timing fields."""
     from lanczos_tpu_torch.utils.timing import eager_ms
@@ -298,7 +310,7 @@ def kernel_row(label, fn, plain, lib, bytes_moved, flops, copy_gbs, floor_ms,
     ms, eager, g_samples, e_samples = device_times(fn, launches, eager_launches)
     plain_ms, _ = eager_ms(plain, launches=plain_launches)
     lib_ms, lib_eager, _, _ = device_times(lib, launches, eager_launches)
-    bound_ms, bound_by = bound(bytes_moved, flops)
+    bound_ms, bound_by = bound(bytes_moved, flops, peak_flops)
     copy_ms = bytes_moved / copy_gbs / 1e6
     print(f"  {label:34s} graph {ms:.5f} ms ({bound_ms / ms:.1%} of its bound), eager {eager:.5f} ms; "
           f"plain {plain_ms:.4f} ms (eager); library {lib_ms:.5f} ms (graph; eager {lib_eager:.5f}); "
@@ -310,8 +322,8 @@ def kernel_row(label, fn, plain, lib, bytes_moved, flops, copy_gbs, floor_ms,
 
 
 def phase_timing(lt, floor_ms):
-    """Kernel, plain and cuSPARSE times at N=160^3, fp32; returns a dict of
-    timing fields per kernel."""
+    """Kernel, plain and cuSPARSE times at N=160^3, fp32 (and the SpMM in
+    fp64); returns a dict of the fp32 timing fields per kernel."""
     from lanczos_tpu_torch.ops import stencil_kernels as sk
 
     print("== times at N=160^3, 27-point, fp32 (graph: replays of 50 calls, median of 20; "
@@ -340,6 +352,22 @@ def phase_timing(lt, floor_ms):
             (8 * 20 + 4) * m, 2 * 27 * 20 * m, copy_gbs, floor_ms,
             launches=5, eager_launches=10, plain_launches=5),
     }
+    del op, xs, X, csr
+    torch.cuda.empty_cache()
+    # The SpMM in fp64, as the flagship's fp64 rerun calls it: 328 B/pt.
+    op = lt.build_regular_hamiltonian(
+        160, 25.0, lt.deuteron_potential_3d, stencil="27", dtype=torch.float64,
+        device="cuda",
+    )
+    X = torch.randn((m, 20), generator=gen, device="cuda", dtype=torch.float64)
+    csr = stencil_csr(op)
+    kernel_row(
+        "stencil_spmm b=20 fp64", lambda: sk.stencil_spmm(op, X),
+        lambda: sk.stencil_spmm_reference(op, X), lambda: torch.sparse.mm(csr, X),
+        (16 * 20 + 8) * m, 2 * 27 * 20 * m, copy_gbs, floor_ms,
+        launches=5, eager_launches=10, plain_launches=2, peak_flops=PEAK_FP64_FLOPS)
+    del op, X, csr
+    torch.cuda.empty_cache()
     return rows, copy_gbs
 
 
@@ -605,9 +633,9 @@ def phase_whole_operator(lt, ops, host):
 
 
 def phase_interface_timing(lt, ops, host, copy_gbs, floor_ms):
-    """N=120, fp32: interface kernel, plain, CSR; the stencil SpMV on the
-    level grids; whole matvec vs CSR mv.  Returns the JSON line's timing
-    fields of the interface kernel."""
+    """N=120, fp32: interface kernel, plain, CSR; the stencil SpMV and the
+    SpMM at b=8 on the level grids; whole matvec vs CSR mv.  Returns the
+    JSON line's timing fields of the interface kernel."""
     from lanczos_tpu_torch.ops import interface_kernel as ik
     from lanczos_tpu_torch.ops import stencil_kernels as sk
 
@@ -646,6 +674,16 @@ def phase_interface_timing(lt, ops, host, copy_gbs, floor_ms):
             lambda csr_l=csr_l, xl=xl: torch.mv(csr_l, next(xl)),
             (8 if level.diag is None else 12) * ml, 2 * len(level.offsets) * ml, copy_gbs,
             floor_ms)
+        # The SpMM at b=8, as each matmat of the Arnoldi residual block runs
+        # it: X read and Y written, 64 B/pt (and the diag, if any).
+        Xl = torch.randn((ml, 8), generator=gen, device="cuda")
+        kernel_row(
+            f"stencil_spmm b=8 level {'x'.join(map(str, level.grid_shape))}",
+            lambda level=level, Xl=Xl: sk.stencil_spmm(level, Xl),
+            lambda level=level, Xl=Xl: sk.stencil_spmm_reference(level, Xl),
+            lambda csr_l=csr_l, Xl=Xl: torch.sparse.mm(csr_l, Xl),
+            (64 if level.diag is None else 68) * ml, 2 * len(level.offsets) * 8 * ml, copy_gbs,
+            floor_ms, plain_launches=10)
     # The whole operator against one CSR mv of the whole H.
     rows = host["N=120"][1]
     csr_h = csr_of_rows(rows, idx_map, m)

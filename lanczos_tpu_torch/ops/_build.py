@@ -114,12 +114,17 @@ def load_stencil_library():
         spmv.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr, ptr]
         spmv.restype = i32
         spmm = getattr(lib, f"stencil_spmm_{dt}")
-        # x, diag, w, y, nz, ny, nx, b, offsets, k, stream
-        spmm.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, i32, ptr]
+        # x, diag, y, nz, ny, nx, b, tile (ty, tx, cb), z_chunk, w27, stream
+        spmm.argtypes = [ptr, ptr, ptr, *[i32] * 8, ptr, ptr]
         spmm.restype = i32
-    for name in ("resident_f32", "resident_f64", "tile_y", "tile_x"):
-        getattr(lib, f"stencil_spmv_{name}").argtypes = []
-        getattr(lib, f"stencil_spmv_{name}").restype = i32
+        resident = getattr(lib, f"stencil_spmm_resident_{dt}")
+        # b, tile (ty, tx, cb), has_diag
+        resident.argtypes = [i32] * 5
+        resident.restype = i32
+    for name in ("spmv_resident_f32", "spmv_resident_f64", "spmv_tile_y", "spmv_tile_x",
+                 "spmm_outputs_per_thread"):
+        getattr(lib, f"stencil_{name}").argtypes = []
+        getattr(lib, f"stencil_{name}").restype = i32
     return lib, info
 
 

@@ -9,12 +9,16 @@ Counterpart of ``lanczos_tpu/ops/pallas_kernels.py``:
 
 Both kernels live in ``csrc/stencil.cu`` (built by ``ops/_build.py``).  What
 bounds them on the H100 is bytes: the compulsory traffic is a read of x, a
-read of diag and a write of y, 12 B/point in fp32.  The SpMV marches along
-z with a shared-memory plane ring, each block owning a 32 x 8 tile of the
-(y, x) plane over a chunk of planes that :func:`spmv_z_chunk` picks from
-the grid and the card's resident blocks; the SpMM is one thread per output
-value with the neighbour reuse left to L1/L2 (see the source's header).
-The TPU kernel's slab/halo/flat-plane layout is not carried over.
+read of diag and a write of y, 12 B/point in fp32 for the SpMV, 8b + 4
+B/point for the SpMM.  Both march along z with a shared-memory plane ring:
+the SpMV's blocks own a 32 x 8 tile of the (y, x) plane over a chunk of
+planes that :func:`spmv_z_chunk` picks from the grid and the card's
+resident blocks; the SpMM treats the (M, b) block as a grid (nz, ny, nx*b)
+whose x-taps step by b, with the tile of :func:`spmm_tile` (all b columns
+of each point, or sector-aligned column chunks when b is wide) and the
+chunk of :func:`spmm_z_chunk` (see the source's header).  The TPU kernel's
+slab/halo/flat-plane layout and its one call per column are not carried
+over.
 
 Dispatch is by the tensor's device only: a CPU tensor goes to the plain
 version (``*_reference``: a sum of ``torch.roll``s over the taps plus the
@@ -22,9 +26,9 @@ diagonal), a CUDA tensor launches the kernel or raises.  There is no
 fallback and no switch.  Each wrapper counts its kernel launches in
 ``<wrapper>.launches``, incremented where the kernel is launched and
 nowhere else, so a run can show that its main path went through the kernel.
-What a launch needs from the operator (the SpMV's dense weights and z-chunk,
-the SpMM's offsets array and contiguous weights) is kept on the operator
-and renewed when its weights or diag change.
+What a launch needs from the operator (the dense weights, and per dtype,
+device and width the tile and z-chunk) is kept on the operator and renewed
+when its weights or diag change.
 """
 
 from __future__ import annotations
@@ -43,7 +47,10 @@ __all__ = [
     "stencil_spmm",
     "stencil_spmv_reference",
     "stencil_spmm_reference",
+    "z_chunk",
     "spmv_z_chunk",
+    "spmm_tile",
+    "spmm_z_chunk",
 ]
 
 #: Taps the CUDA kernel takes (kMaxTaps in csrc/stencil.cu): the full
@@ -56,14 +63,25 @@ _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 #: checked against the library when it loads.
 TILE_Y, TILE_X = 8, 32
 
+#: The SpMM's tile (:func:`spmm_tile`): rows of the (y, x) plane, the bytes
+#: of outputs a tile row aims at, its least and most points along x, and
+#: the DRAM sector that a column chunk's width is a multiple of.
+SPMM_TILE_Y = 8
+SPMM_ROW_BYTES = 640
+SPMM_MIN_TILE_X, SPMM_MAX_TILE_X = 4, 32
+SECTOR_BYTES = 32
+#: Outputs per thread of the SpMM (kSpmmOutputs), checked when the library
+#: loads.
+SPMM_OUTPUTS = 4
+
 
 class _OpCache:
     """What the kernels need from one operator, worked out from its
-    geometry, weights and diag: whether the kernels cover it, the SpMV's 27
-    dense weights on the host, and each kernel's launch arguments per dtype
-    and device (``_launch_args``).  It holds the weights and diag tensors
-    themselves and their versions, so a replaced or modified tensor is
-    noticed whatever address it has (:func:`_cache`)."""
+    geometry, weights and diag: whether the kernels cover it, the 27 dense
+    weights on the host (duplicate offsets summed), and each kernel's launch
+    arguments per dtype, device and width (``_launch_args``).  It holds the
+    weights and diag tensors themselves and their versions, so a replaced
+    or modified tensor is noticed whatever address it has (:func:`_cache`)."""
 
     __slots__ = ("grid_shape", "offsets", "weights", "diag", "versions", "supported",
                  "w27", "launches")
@@ -111,24 +129,55 @@ def kernel_supported(op) -> bool:
     return _cache(op).supported
 
 
-def spmv_z_chunk(grid_shape, resident_blocks: int) -> int:
-    """Output planes per block of the SpMV on a (nz, ny, nx) grid, for a
-    card that holds ``resident_blocks`` of its blocks at once.
+def z_chunk(nz: int, blocks_per_plane: int, resident_blocks: int) -> int:
+    """Output planes per block of a z-march over nz planes whose blocks
+    tile each plane ``blocks_per_plane`` times, for a card that holds
+    ``resident_blocks`` of them at once.
 
     Each block of a chunk of zc planes reads zc + 2 input planes, and the
     blocks run in waves of ``resident_blocks``; the chunk minimises (waves)
     x (zc + 2), preferring fewer, longer chunks on a tie.  Small grids get
     short chunks (down to one plane) so that they still fill the card.
     """
-    nz, ny, nx = grid_shape
-    tiles = -(-nx // TILE_X) * -(-ny // TILE_Y)
     best = None
     for n in range(1, nz + 1):
         zc = -(-nz // n)
-        cost = -(-tiles * -(-nz // zc) // max(resident_blocks, 1)) * (zc + 2)
+        cost = -(-blocks_per_plane * -(-nz // zc) // max(resident_blocks, 1)) * (zc + 2)
         if best is None or cost < best[0]:
             best = (cost, zc)
     return best[1]
+
+
+def spmv_z_chunk(grid_shape, resident_blocks: int) -> int:
+    """:func:`z_chunk` of the SpMV (32 x 8 tiles) on a (nz, ny, nx) grid."""
+    nz, ny, nx = grid_shape
+    return z_chunk(nz, -(-nx // TILE_X) * -(-ny // TILE_Y), resident_blocks)
+
+
+def spmm_tile(b: int, elem_bytes: int):
+    """(ty, tx, cb) of the SpMM for an (M, b) block of ``elem_bytes``
+    elements: ty x tx points of the (y, x) plane, cb columns of each.
+
+    A tile row aims at SPMM_ROW_BYTES of outputs (tx * b * elem_bytes), with
+    4 to 32 points along x: 8 x 8 points at b = 20 in fp32, 8 x 20 at b = 8,
+    8 x 32 at b <= 5.  When even 4 points of all b columns overrun the row,
+    the columns are split into chunks of cb, the widest multiple of a
+    32-byte sector that 4 points hold (40 columns in fp32, 20 in fp64), so
+    that blocks of neighbouring chunks never share a sector."""
+    row = SPMM_ROW_BYTES // elem_bytes
+    if b * SPMM_MIN_TILE_X <= row:
+        return SPMM_TILE_Y, min(SPMM_MAX_TILE_X, row // b), b
+    sector = SECTOR_BYTES // elem_bytes
+    return SPMM_TILE_Y, SPMM_MIN_TILE_X, row // SPMM_MIN_TILE_X // sector * sector
+
+
+def spmm_z_chunk(grid_shape, b: int, tile, resident_blocks: int) -> int:
+    """:func:`z_chunk` of the SpMM with ``tile`` (:func:`spmm_tile`) for an
+    (M, b) block on a (nz, ny, nx) grid: a plane takes one block per tile
+    and column chunk."""
+    nz, ny, nx = grid_shape
+    ty, tx, cb = tile
+    return z_chunk(nz, -(-nx // tx) * -(-ny // ty) * -(-b // cb), resident_blocks)
 
 
 def stencil_spmv_reference(op, x: torch.Tensor) -> torch.Tensor:
@@ -179,7 +228,8 @@ def _check(op, x: torch.Tensor, shape) -> None:
 @functools.lru_cache(maxsize=None)
 def _library():
     """``csrc/stencil.cu``'s library, built and loaded once; its SpMV tile
-    is checked against TILE_Y x TILE_X here, not per launch."""
+    and SpMM outputs per thread are checked against the host's here, not
+    per launch."""
     from ._build import load_stencil_library
 
     lib, _ = load_stencil_library()
@@ -187,46 +237,54 @@ def _library():
     if tile != (TILE_Y, TILE_X):
         raise RuntimeError(f"csrc/stencil.cu tiles the plane {tile}, the host expects "
                            f"{(TILE_Y, TILE_X)}")
+    if lib.stencil_spmm_outputs_per_thread() != SPMM_OUTPUTS:
+        raise RuntimeError("csrc/stencil.cu's SpMM gives each thread "
+                           f"{lib.stencil_spmm_outputs_per_thread()} outputs, the host "
+                           f"expects {SPMM_OUTPUTS}")
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_blocks(tag: str, device_index: int) -> int:
-    """SpMV blocks the card holds at once (SMs x blocks per SM), asked of
-    the CUDA runtime once per dtype and device."""
-    fn = getattr(_library(), f"stencil_spmv_resident_{tag}")
+def _resident_blocks(query: str, device_index: int, *args) -> int:
+    """Blocks of a kernel that the card holds at once (SMs x blocks per SM):
+    the library's occupancy query ``query(*args)`` (``stencil_spmv_resident_*``
+    or, for an SpMM launch's width, tile and diag, ``stencil_spmm_resident_*``),
+    asked once per device and arguments."""
     with torch.cuda.device(device_index):
-        n = fn()
+        n = getattr(_library(), query)(*args)
     if n <= 0:
-        raise RuntimeError(f"occupancy query of the SpMV kernel failed with CUDA error {-n}")
+        raise RuntimeError(f"{query} failed with CUDA error {-n}")
     return n
 
 
 def _launch_args(name: str, op, x: torch.Tensor):
     """(C launcher, diag, kernel arguments) of kernel ``name`` for ``op`` on
-    x's dtype and device: for the SpMV its z-chunk and dense host weights,
-    for the SpMM its contiguous weights, offsets array and tap count.  Kept
-    in the operator's cache, which a change of weights or diag renews."""
+    x's dtype and device: the SpMV's z-chunk, the SpMM's tile and z-chunk
+    for x's width, and the dense host weights.  Kept in the operator's
+    cache, which a change of weights or diag renews."""
     cache = _cache(op)
-    key = (name, x.dtype, x.device)
+    b = x.shape[1] if name == "stencil_spmm" else None
+    key = (name, x.dtype, x.device, b)
     hit = cache.launches.get(key)
     if hit is not None:
         return hit
     tag = _DTYPES[x.dtype]
     fn = getattr(_library(), f"{name}_{tag}")
     diag = None if op.diag is None else op.diag.contiguous()
+    dev = x.device.index
     if name == "stencil_spmv":
-        zc = spmv_z_chunk(op.grid_shape, _resident_blocks(tag, x.device.index))
+        zc = spmv_z_chunk(op.grid_shape, _resident_blocks(f"stencil_spmv_resident_{tag}", dev))
         args = (fn, diag, (zc, cache.w27))
     else:
-        k = len(op.offsets)
-        offs = (ctypes.c_int * (3 * k))(*(o for off in op.offsets for o in off))
-        args = (fn, diag, (op.weights.contiguous(), offs, k))
+        tile = spmm_tile(b, x.element_size())
+        resident = _resident_blocks(f"stencil_spmm_resident_{tag}", dev, b, *tile,
+                                    int(diag is not None))
+        args = (fn, diag, (b, *tile, spmm_z_chunk(op.grid_shape, b, tile, resident), cache.w27))
     cache.launches[key] = args
     return args
 
 
-def _launch(name: str, op, x: torch.Tensor, b) -> torch.Tensor:
+def _launch(name: str, op, x: torch.Tensor) -> torch.Tensor:
     """Launch kernel ``name`` on x's device and stream; raise on a refused
     launch."""
     if x.device.type != "cuda":
@@ -234,13 +292,7 @@ def _launch(name: str, op, x: torch.Tensor, b) -> torch.Tensor:
     fn, diag, extra = _launch_args(name, op, x)
     y = torch.empty_like(x)
     d = None if diag is None else diag.data_ptr()
-    if name == "stencil_spmv":
-        zc, w27 = extra
-        err = launch_on(x.device, fn, x.data_ptr(), d, y.data_ptr(), *op.grid_shape, zc, w27)
-    else:
-        weights, offs, k = extra
-        err = launch_on(x.device, fn, x.data_ptr(), d, weights.data_ptr(), y.data_ptr(),
-                        *op.grid_shape, b, offs, k)
+    err = launch_on(x.device, fn, x.data_ptr(), d, y.data_ptr(), *op.grid_shape, *extra)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     return y
@@ -251,7 +303,7 @@ def stencil_spmv(op, x: torch.Tensor) -> torch.Tensor:
     _check(op, x, (op.shape[0],))
     if x.device.type == "cpu":
         return stencil_spmv_reference(op, x)
-    y = _launch("stencil_spmv", op, x, None)
+    y = _launch("stencil_spmv", op, x)
     stencil_spmv.launches += 1
     return y
 
@@ -263,7 +315,7 @@ def stencil_spmm(op, X: torch.Tensor) -> torch.Tensor:
     _check(op, X, (op.shape[0], X.shape[1]))
     if X.device.type == "cpu":
         return stencil_spmm_reference(op, X)
-    Y = _launch("stencil_spmm", op, X, X.shape[1])
+    Y = _launch("stencil_spmm", op, X)
     stencil_spmm.launches += 1
     return Y
 

@@ -14,7 +14,8 @@ work per call outlasts the kernels):
 
 * ``stencil_spmv`` on the regular N=160^3 27-point Hamiltonian and on the
   N=120 irregular lattice's two level grids (40^3, 60^3);
-* ``stencil_spmm`` with b=20 at N=160^3;
+* ``stencil_spmm`` with b=20 at N=160^3, and with b=8 (the Arnoldi
+  residual block's width) on the two level grids;
 * ``apply_fused_interface`` of A at N=120 (138 classes, 11,598 rows);
 * ``CompositeV2.matvec`` at N=120;
 * the launch floor: a one-element ``fill_`` replayed the same way.
@@ -92,9 +93,12 @@ def main():
     op, _ = lt.assemble_irregular_hamiltonian_composite2(
         lat, lt.deuteron_potential_3d, dtype=torch.float32, device="cuda")
     for level in op.level_ops:
+        grid = "x".join(map(str, level.grid_shape))
         xl = rotating(level.shape[0])
-        case(f"stencil_spmv level {'x'.join(map(str, level.grid_shape))}",
+        case(f"stencil_spmv level {grid}",
              lambda level=level, xl=xl: sk.stencil_spmv(level, next(xl)))
+        Xl = torch.randn((level.shape[0], 8), generator=gen, device="cuda")
+        case(f"stencil_spmm b=8 level {grid}", lambda level=level, Xl=Xl: sk.stencil_spmm(level, Xl))
     xo = rotating(op.shape[0], scale=op.live)
     y = torch.zeros(op.shape[0], device="cuda")
     case("apply_fused_interface N=120 A", lambda: ik.apply_fused_interface(op.fused, next(xo), y))

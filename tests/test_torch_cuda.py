@@ -69,14 +69,18 @@ def _operators(dtype):
 def test_cuda_kernels_match_reference(dtype):
     _require_card()
     # fp32: test_pallas.py's tolerance (another summation order, FMA);
-    # fp64: the SpMV sums the taps grouped by dz, ~1e-15 relative.
+    # fp64: both kernels sum the taps grouped by dz, ~1e-15 relative.
     atol_scale, rtol = (2e-5, 1e-4) if dtype == torch.float32 else (1e-12, 1e-12)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for op in _operators(dtype):
         m = op.shape[0]
-        for b in (None, 3, 20):
+        # b=8 and 20 also as a block that starts one element into its
+        # buffer: not 16-byte aligned, so the SpMM takes element copies.
+        for b, offset in ((None, 0), (1, 0), (3, 0), (5, 0), (8, 0), (20, 0), (8, 1), (20, 1)):
             shape = (m,) if b is None else (m, b)
-            x = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+            n = int(np.prod(shape))
+            buf = torch.randn(n + offset, generator=gen, device="cuda", dtype=dtype)
+            x = buf[offset:].view(shape)
             before = (sk.stencil_spmv.launches, sk.stencil_spmm.launches)
             if b is None:
                 y, y_ref = sk.stencil_spmv(op, x), sk.stencil_spmv_reference(op, x)

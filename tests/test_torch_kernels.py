@@ -78,14 +78,16 @@ def test_spmv_reference_matches_pallas(case, atol_scale, rtol):
     np.testing.assert_array_equal(sk.stencil_spmv(P, torch.from_numpy(x)).numpy(), y_ref)
 
 
-def test_spmm_reference_matches_pallas():
-    H = _jax_op((10, "27"), np.float32)
+# The SpMM at every SpMV shape, plus the 27-point N=10 grid, at b=3.
+@pytest.mark.parametrize("case,atol_scale,rtol", PALLAS_CASES + [((10, "27"), 2e-5, 1e-4)])
+def test_spmm_reference_matches_pallas(case, atol_scale, rtol):
+    H = _jax_op(case, np.float32)
     P = from_jax(H, device="cpu")
     X = np.random.default_rng(2).standard_normal((H.shape[0], 3)).astype(np.float32)
     Y_pal = np.asarray(stencil_spmm_pallas(H, X, interpret=True))
     Y_ref = sk.stencil_spmm_reference(P, torch.from_numpy(X)).numpy()
     scale = float(np.max(np.abs(Y_pal)))
-    np.testing.assert_allclose(Y_ref, Y_pal, atol=2e-5 * scale, rtol=1e-4)
+    np.testing.assert_allclose(Y_ref, Y_pal, atol=atol_scale * scale, rtol=rtol)
     np.testing.assert_array_equal(sk.stencil_spmm(P, torch.from_numpy(X)).numpy(), Y_ref)
 
 
