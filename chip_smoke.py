@@ -52,6 +52,42 @@ its work per call outlasts the kernel) and the launch floor (a one-element
 10. ``two_sided_lanczos`` at N=60 in fp64 (n=250) on the CompositeV2 and
     its transpose, against the N=60 golden values.
 
+The north-star path (compensated reductions, thick restart, refinement):
+
+11. ``dot2_rounded`` and ``norm2`` on the card at M = 160^3 against the CPU
+    result of the same inputs (within 1 fp32 ulp).
+12. ``eigsh_restarted(k=20, compensated=True)`` in fp32 on the regular
+    flagship (default basis 70), held against the same solve in fp64
+    (converged: its true residuals below a tenth of the tolerance) value by
+    value, multiplicity included, within eps32 ||H||_G, and against phase
+    5's fp64 ``eigsh`` on the values that one converged; every pair's true
+    residual within 14 eps32 ||H||_G; with its wall, cycles, peak memory
+    (beside the n=400 ``eigsh``'s) and kernel launches.
+13. Checkpoints at N=64, fp32: a run stopped after 2 cycles and resumed
+    from its file against an uninterrupted run (1e-6 relative).
+14. ``scripts/northstar_torch.py``'s pipeline in full at n_fine=72 (k=100
+    + 10 buffer pairs, fp32 tol 3e-7, refinement tol 1e-8): the 100
+    eigenvalues against scipy ``eigsh(L + I, k=110, "SA", tol=1e-12)``
+    (atol 1e-8) and the true fp64 residuals (<= 3e-8 relative to the
+    shifted eigenvalue); then each kernel against its plain version at the
+    shapes this operator gives it (below).
+15. The same pipeline at n_fine=216 (1,586,304 points), with each stage's
+    wall, cycles, peak memory and every kernel's launches by dtype: the
+    refinement completes, lambda_0 is 0 within 1e-8, all 100 pairs reach
+    3e-8, and the SpMV and interface kernels run in fp32 and fp64 and the
+    SpMM in fp32.  Then, on that operator: each kernel against its plain
+    version on the same inputs at the shapes the pipeline gives it (the
+    SpMV in fp32 and fp64 and the SpMM at b=8 in fp32 on each level grid,
+    the interface kernel in fp32 at b=1 and 8 and in fp64 at b=1; phase
+    3's tolerances); the device busy share (``torch.profiler``) of one
+    restart cycle and of one refinement round; and the kernel, plain and
+    cuSPARSE times of the interface kernel (fp32, fp64), the SpMV (fp32,
+    fp64) and the SpMM at b=8 (fp32) on the lattice's level grids.
+16. ``eigs_nonsym(compensated=True)`` at N=60 (fp32) and
+    ``refine_eigenpairs_dd_nonsym`` of its pairs, against the N=60 golden;
+    every refined pair of a complete cluster (one that does not hold the
+    highest computed pair) at a relative residual <= 1e-8.
+
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -209,12 +245,27 @@ def phase_build():
                 print(f"  {line.strip()}")
 
 
+def against_plain(label, y, y_ref):
+    """Hold a kernel's output to its plain version's; print the line and
+    return the max abs error.  fp32: the tolerance of the JAX package's
+    kernel tests (the sums run in another order); fp64: the kernels sum the
+    same taps in another order (grouped by dz), ~1e-15 relative."""
+    torch.cuda.synchronize()
+    atol_scale, rtol = {torch.float32: (2e-5, 1e-4), torch.float64: (1e-12, 1e-12)}[y_ref.dtype]
+    scale = float(y_ref.abs().max())
+    err = (y - y_ref).abs()
+    ok = bool((err <= atol_scale * scale + rtol * y_ref.abs()).all())
+    abs_err = float(err.max())
+    print(f"  {label:44s} {abs_err:.3e} {abs_err / scale:.3e} {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"{label}: the kernel disagrees with its plain version")
+    return abs_err
+
+
 def phase_kernels(lt):
     """Kernel vs plain version at every shape; returns max abs error per kernel."""
     from lanczos_tpu_torch.ops import stencil_kernels as sk
 
     print("== kernels vs plain version (max abs err, max abs err / max |y_ref|)")
-    tol = {torch.float32: (2e-5, 1e-4), torch.float64: (1e-12, 1e-12)}
     max_abs = {"stencil_spmv": 0.0, "stencil_spmm": 0.0}
     gen = torch.Generator(device="cuda").manual_seed(0)
     # (kernel, b, offset): a block at offset 1 starts one element into its
@@ -222,10 +273,6 @@ def phase_kernels(lt):
     launches = [("stencil_spmv", None, 0)] + [("stencil_spmm", b, 0) for b in (1, 3, 5, 8, 20)] + [
         ("stencil_spmm", 8, 1), ("stencil_spmm", 20, 1)]
     for dtype in (torch.float32, torch.float64):
-        # fp32: the tolerance of the JAX package's kernel tests (the sums run
-        # in another order); fp64: the kernels sum the same taps in another
-        # order (grouped by dz), ~1e-15 relative.
-        atol_scale, rtol = tol[dtype]
         for name, op in kernel_cases(lt, dtype):
             m = op.shape[0]
             for kname, b, offset in launches:
@@ -237,16 +284,9 @@ def phase_kernels(lt):
                     y, y_ref = sk.stencil_spmv(op, x), sk.stencil_spmv_reference(op, x)
                 else:
                     y, y_ref = sk.stencil_spmm(op, x), sk.stencil_spmm_reference(op, x)
-                torch.cuda.synchronize()
-                scale = float(y_ref.abs().max())
-                err = (y - y_ref).abs()
-                ok = bool((err <= atol_scale * scale + rtol * y_ref.abs()).all())
-                abs_err = float(err.max())
-                max_abs[kname] = max(max_abs[kname], abs_err)
                 label = kname if b is None else f"{kname} b={b}{' unaligned' if offset else ''}"
-                print(f"  {str(dtype)[6:]:8s} {name:22s} {label:28s} "
-                      f"{abs_err:.3e} {abs_err / scale:.3e} {'ok' if ok else 'MISMATCH'}")
-                check(ok, f"{label} disagrees with its plain version on {name} {dtype}")
+                abs_err = against_plain(f"{str(dtype)[6:]:8s} {name:22s} {label:28s}", y, y_ref)
+                max_abs[kname] = max(max_abs[kname], abs_err)
     return max_abs
 
 
@@ -444,7 +484,7 @@ def phase_flagship(lt):
     check(accepted[0], "flagship fp64: ground state not accepted")
     compare_eigs("flagship fp32 vs fp64 (same v0)", runs[torch.float32]["vals"],
                  ref["vals"], accepted, runs[torch.float32]["tol"])
-    return runs[torch.float32]
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -511,7 +551,7 @@ def to_torch_csr(h, dtype=torch.float32):
         torch.as_tensor(h.data, dtype=dtype), size=h.shape, device="cuda")
 
 
-def interface_csr(fi):
+def interface_csr(fi, dtype=torch.float32):
     """The fused classes as a CSR (R, M) over the operator's slots, plus the
     R output slots: the same sums the kernel computes, for cuSPARSE."""
     import scipy.sparse
@@ -535,7 +575,7 @@ def interface_csr(fi):
     m = sum(int(np.prod(ext)) for _, ext, _ in fi.level_meta)
     h = scipy.sparse.csr_matrix(
         (np.concatenate(vv), (np.concatenate(rr), np.concatenate(cc))), shape=(r0, m))
-    return to_torch_csr(h), np.concatenate(out_slots)
+    return to_torch_csr(h, dtype), np.concatenate(out_slots)
 
 
 def interface_bytes(fi, elem):
@@ -570,9 +610,8 @@ def phase_interface_kernel(lt, lattices):
     from lanczos_tpu_torch.ops import interface_kernel as ik
     from lanczos_tpu_torch.ops.composite2 import build_composite_v2
 
-    print("== interface kernel vs plain version (classes, rows, tap reads, "
+    print("== interface kernel vs plain version (classes, rows, tap reads, build s, "
           "max abs err, max abs err / max |y_ref|)")
-    tol = {torch.float32: (2e-5, 1e-4), torch.float64: (1e-12, 1e-12)}
     gen = torch.Generator(device="cuda").manual_seed(2)
     max_abs, ops, host = 0.0, {}, {}
     for name, lat, min_rows in lattices:
@@ -587,27 +626,18 @@ def phase_interface_kernel(lt, lattices):
             )
             build_s = time.perf_counter() - t0
             ops[(name, dtype)] = (op, idx_map)
-            atol_scale, rtol = tol[dtype]
             for which, o in (("A", op), ("A^T", op.transpose_op)):
                 fi = o.fused
                 for b in (None, 3):
                     shape = (o.shape[0],) if b is None else (o.shape[0], b)
                     x = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
                     y0 = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
-                    y = ik.apply_fused_interface(fi, x, y0.clone())
-                    y_ref = ik.apply_fused_interface_reference(fi, x, y0.clone())
-                    torch.cuda.synchronize()
-                    scale = float(y_ref.abs().max())
-                    err = (y - y_ref).abs()
-                    ok = bool((err <= atol_scale * scale + rtol * y_ref.abs()).all())
-                    abs_err = float(err.max())
+                    abs_err = against_plain(
+                        f"{str(dtype)[6:]:8s} {name:11s} {which:3s} b={b or 1} "
+                        f"{fi.cls.shape[0]:4d} {fi.num_rows:6d} {fi.tap_reads:7d} {build_s:6.2f}",
+                        ik.apply_fused_interface(fi, x, y0.clone()),
+                        ik.apply_fused_interface_reference(fi, x, y0.clone()))
                     max_abs = max(max_abs, abs_err)
-                    print(f"  {str(dtype)[6:]:8s} {name:11s} {which:3s} b={b or 1} "
-                          f"{fi.cls.shape[0]:4d} {fi.num_rows:6d} {fi.tap_reads:7d} "
-                          f"{abs_err:.3e} {abs_err / scale:.3e} {'ok' if ok else 'MISMATCH'}"
-                          f"   (build {build_s:.2f} s)")
-                    check(ok, f"interface kernel disagrees with its plain version: "
-                              f"{name} {which} {dtype} b={b}")
     return max_abs, ops, host
 
 
@@ -864,6 +894,505 @@ def phase_two_sided(lt, ops, host):
     check(worst <= 3e-5 * max(1.0, float(np.abs(ref).max())), f"two-sided pair {worst:.3e} off")
 
 
+# ---------------------------------------------------------------------------
+# The north-star path: compensated reductions, thick restart, refinement
+
+
+#: The north-star pipeline's lattice in phase 15 (reduced from the
+#: north star's 432: its host build alone takes ~5 min there).
+NORTHSTAR_N_FINE = 216
+
+
+def _wrappers():
+    from lanczos_tpu_torch.ops import interface_kernel as ik
+    from lanczos_tpu_torch.ops import stencil_kernels as sk
+
+    return {"stencil_spmv": sk.stencil_spmv, "stencil_spmm": sk.stencil_spmm,
+            "apply_fused_interface": ik.apply_fused_interface}
+
+
+def reset_launches():
+    for w in _wrappers().values():
+        w.launches = 0
+        for dt in w.launches_by_dtype:
+            w.launches_by_dtype[dt] = 0
+
+
+def read_launches():
+    """{kernel: {"total": n, "float32": n, "float64": n}}."""
+    return {name: {"total": w.launches,
+                   **{str(dt)[6:]: n for dt, n in w.launches_by_dtype.items()}}
+            for name, w in _wrappers().items()}
+
+
+def ulps32(a, b):
+    a, b = np.float32(a), np.float32(b)
+    return abs(int(a.view(np.int32)) - int(b.view(np.int32)))
+
+
+def phase_compensated_dots():
+    from lanczos_tpu_torch.ops.compensated import dot2_rounded, norm2
+
+    print("== compensated reductions at M = 160^3 on the card vs the CPU (fp32 ulps)")
+    rng = np.random.default_rng(11)
+    m = 160**3
+    a = rng.standard_normal(m).astype(np.float32)
+    b = rng.standard_normal(m).astype(np.float32)
+    cases = {"random": (a, b),
+             # the products cancel in pairs but for a 2^-20 relative part
+             "cancelling": (np.concatenate([a[: m // 2], a[: m // 2]]) * np.float32(1e4),
+                            np.concatenate([b[: m // 2], -b[: m // 2] * np.float32(1 + 2**-20)]))}
+    for name, (x, y) in cases.items():
+        xc, yc = torch.from_numpy(x), torch.from_numpy(y)
+        xg, yg = xc.cuda(), yc.cuda()
+        d_cpu, d_gpu = float(dot2_rounded(xc, yc)), float(dot2_rounded(xg, yg))
+        n_cpu = sum(float(t) for t in norm2(xc))
+        n_gpu = sum(float(t) for t in norm2(xg))
+        exact = float(np.dot(x.astype(np.float64), y.astype(np.float64)))
+        print(f"  {name:10s} dot2_rounded gpu {d_gpu:.9e} cpu {d_cpu:.9e} ({ulps32(d_gpu, d_cpu)} ulp; "
+              f"float64 dot {exact:.9e}); norm2 gpu {n_gpu:.9e} cpu {n_cpu:.9e} "
+              f"({ulps32(n_gpu, n_cpu)} ulp)")
+        check(ulps32(d_gpu, d_cpu) <= 1, f"dot2_rounded ({name}) differs from the CPU by > 1 ulp")
+        check(ulps32(n_gpu, n_cpu) <= 1, f"norm2 ({name}) differs from the CPU by > 1 ulp")
+
+
+def phase_restarted_flagship(lt, flagship):
+    """eigsh_restarted(k=20, compensated) fp32 on N=160^3 against the fp64
+    operator (a Rayleigh-Ritz bound on its block), the same solve in fp64
+    and phase 5's fp64 eigsh."""
+    print("== eigsh_restarted at N=160^3 (27-point, fp32, k=20, compensated, default basis 70) "
+          "vs the fp64 operator, eigsh_restarted in fp64 and the fp64 eigsh(n=400)")
+    N, k = 160, 20
+    v0 = np.random.default_rng(99).uniform(-1.0, 1.0, N**3)
+    H = lt.build_regular_hamiltonian(N, 25.0, lt.deuteron_potential_3d, stencil="27",
+                                     dtype=torch.float32, device="cuda")
+    tol = fp32_tolerance(H)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = lt.eigsh_restarted(H, k=k, compensated=True, v0=v0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  wall {wall:.3f} s, {res.cycles} cycles, peak device memory {peak / 2**30:.2f} GiB "
+          f"(eigsh n=400 fp32: {flagship[torch.float32]['peak'] / 2**30:.2f} GiB), launches "
+          f"{ {n: c['total'] for n, c in launches.items()} }")
+    print(res.summary(print_nr=k))
+    vals = res.eigenvalues.double().cpu().numpy()
+    resid = res.residuals.double().cpu().numpy()
+    X = res.eigenvectors.double()
+    check(bool(torch.isfinite(res.eigenvalues).all() and torch.isfinite(res.eigenvectors).all()),
+          "eigsh_restarted: non-finite result")
+    check(launches["stencil_spmv"]["total"] > 0, "eigsh_restarted ran no SpMV launch")
+    del H, res
+    torch.cuda.empty_cache()
+    # The true residuals are measured in fp32: A x carries the rounding of
+    # its 27-term rows, at most gamma_27 || |H| || <= 13.5 eps32 ||H||_G, and
+    # the fp32 rounding of x itself moves A x by up to eps32/2 ||H||.
+    print(f"  true residuals (fp32): max {resid.max():.3e} MeV = {resid.max() / tol:.2f} "
+          f"eps32 ||H||_G (gate 14)")
+    check(resid.max() <= 14 * tol, f"eigsh_restarted: a true residual {resid.max():.3e} > "
+                                   f"14 eps32 ||H||_G = {14 * tol:.3e}")
+
+    # The block against the fp64 operator.  Kahan's theorem: for Q with
+    # orthonormal columns, the eigenvalues theta' of Q^T H Q lie, with
+    # their multiplicity, within rho = ||H Q - Q (Q^T H Q)||_2 of k
+    # eigenvalues of H.  A ghost (a second copy of one vector) would leave
+    # X^T X singular.
+    H = lt.build_regular_hamiltonian(N, 25.0, lt.deuteron_potential_3d, stencil="27",
+                                     dtype=torch.float64, device="cuda")
+    gram_dev = float(torch.linalg.matrix_norm(X.T @ X - torch.eye(k, dtype=X.dtype,
+                                                                  device=X.device), ord=2))
+    Q = torch.linalg.qr(X).Q
+    del X
+    W = H.matmat(Q)
+    theta_rr, Y = np.linalg.eigh(to_host_sym(Q.T @ W))
+    Yd = torch.as_tensor(Y, device="cuda")
+    R = W @ Yd - (Q @ Yd) * torch.as_tensor(theta_rr, device="cuda")[None, :]
+    rho = float(np.sqrt(np.linalg.eigvalsh((R.T @ R).cpu().numpy()).max()))
+    del Q, W, Yd, R
+    torch.cuda.empty_cache()
+    print(f"  the block in fp64: ||X^T X - I||_2 {gram_dev:.3e} (<= 1e-3); Rayleigh-Ritz on "
+          f"the fp64 H: rho {rho:.3e} MeV = {rho / tol:.2f} eps32 ||H||_G (gate 14), "
+          f"max |theta' - theta| {np.abs(theta_rr - np.sort(vals)).max():.3e} MeV")
+    check(gram_dev <= 1e-3, f"the restarted block is not orthonormal: {gram_dev:.3e}")
+    check(rho <= 14 * tol, f"the restarted block's fp64 residual {rho:.3e} > 14 eps32 ||H||_G")
+
+    # The converged fp64 reference: its residuals bound its own eigenvalue
+    # error by a tenth of the tolerance.
+    t0 = time.perf_counter()
+    ref = lt.eigsh_restarted(H, k=k, v0=v0, max_cycles=400)
+    torch.cuda.synchronize()
+    ref_vals = ref.eigenvalues.double().cpu().numpy()
+    ref_res = ref.residuals.double().cpu().numpy()
+    print(f"  fp64 eigsh_restarted: wall {time.perf_counter() - t0:.3f} s, {ref.cycles} cycles, "
+          f"true residual max {ref_res.max():.3e} MeV (<= tol / 10 = {tol / 10:.3e})")
+    check(ref_res.max() <= tol / 10, "the fp64 eigsh_restarted reference did not converge")
+    del H, ref
+    torch.cuda.empty_cache()
+    # In fp64 a single-vector Krylov space all but misses the second and
+    # third copies of a multiplet, which fp32 rounding feeds into the
+    # fp32 solve: the values pair by nearest, each way, and the counts are
+    # the Rayleigh-Ritz bound's.
+    a, b = np.sort(vals), np.sort(ref_vals)
+    d_ab = np.abs(a[:, None] - b[None, :]).min(axis=1)
+    below = b[b <= a[-1] + tol]
+    d_ba = np.abs(below[:, None] - a[None, :]).min(axis=1)
+    print(f"  fp32 value, theta' (fp64 Rayleigh-Ritz), nearest fp64 eigsh_restarted value "
+          f"(tolerance eps32 ||H||_G = {tol:.3e} MeV):")
+    for i in range(k):
+        j = int(np.argmin(np.abs(b - a[i])))
+        print(f"    {i:2d} {a[i]:14.8f} {theta_rr[i]:14.8f} {b[j]:14.8f} |diff| {d_ab[i]:.3e} "
+              f"{'ok' if d_ab[i] <= tol else 'MISMATCH'}")
+    print(f"  fp64 values not reached by the fp32 block: "
+          f"{np.round(b[b > a[-1] + tol], 8).tolist()}")
+    check(d_ab.max() <= tol, f"an fp32 value is {d_ab.max():.3e} off every fp64 value")
+    check(d_ba.max() <= tol, f"an fp64 value is {d_ba.max():.3e} off every fp32 value")
+
+    # Phase 5's eigsh(n=400) also keeps one copy of each multiplet, and
+    # reports a few Ritz values that mix neighbouring clusters (its
+    # acceptance test passes them).  Each of its values in the restarted
+    # range whose residual is within the tolerance is an eigenvalue within
+    # that much: the restarted solve holds one.
+    eig = flagship[torch.float64]
+    eig_res = eig["res"].residuals.double().cpu().numpy()
+    print(f"  eigsh(n=400) fp64 values with residual <= {tol:.3e} MeV, nearest restarted value:")
+    for lam, r in zip(eig["vals"], eig_res):
+        if r <= tol and lam <= a[-1] + tol:
+            d = float(np.abs(vals - lam).min())
+            print(f"    {lam:14.8f} resid {r:.3e}  |diff| {d:.3e} {'ok' if d <= tol else 'MISSING'}")
+            check(d <= tol, f"eigsh_restarted holds no eigenvalue within {tol:.3e} of {lam:.8f}")
+
+
+def to_host_sym(S):
+    """A small symmetric device matrix on the host in fp64, symmetrized."""
+    S = S.double().cpu().numpy()
+    return (S + S.T) / 2
+
+
+def phase_checkpoint(lt):
+    import tempfile
+
+    print("== checkpoint at N=64 (fp32, k=8, compensated): stop after 2 cycles, resume from "
+          "the file, vs an uninterrupted run")
+    H = lt.build_regular_hamiltonian(64, 25.0, lt.deuteron_potential_3d, stencil="27",
+                                     dtype=torch.float32, device="cuda")
+    v0 = np.random.default_rng(7).uniform(-1.0, 1.0, 64**3)
+    kw = dict(k=8, compensated=True, v0=v0)
+    straight = lt.eigsh_restarted(H, **kw)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "restart.npz")
+        first = lt.eigsh_restarted(H, max_cycles=2, checkpoint_path=path, **kw)
+        resumed = lt.eigsh_restarted(H, checkpoint_path=path, **kw)
+    a = straight.eigenvalues.double().cpu().numpy()
+    b = resumed.eigenvalues.double().cpu().numpy()
+    rel = np.abs(a - b) / np.abs(a)
+    print(f"  uninterrupted: {straight.cycles} cycles; interrupted after {first.cycles}, "
+          f"resumed to {resumed.cycles}; max relative eigenvalue difference {rel.max():.3e} "
+          "(tolerance 1e-6)")
+    print(f"    uninterrupted {np.round(a, 8).tolist()}")
+    print(f"    resumed       {np.round(b, 8).tolist()}")
+    check(first.cycles == 2 and rel.max() <= 1e-6, "resumed run disagrees with the uninterrupted one")
+
+
+def _northstar():
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import northstar_torch
+
+    return northstar_torch
+
+
+def phase_northstar_small():
+    import scipy.sparse
+    import scipy.sparse.linalg
+
+    print("== north-star pipeline at n_fine=72 (k=100 + 10, fp32 tol 3e-7, refinement tol "
+          "1e-8) vs scipy eigsh(L + I, k=110, 'SA', tol=1e-12)")
+    t0 = time.perf_counter()
+    info, extra = _northstar().run(n_fine=72, device="cuda", verbose=False)
+    wall = time.perf_counter() - t0
+    print(f"  {info['num_points']} points, M = {info['m_operator']}, {info['n_interface_classes']} "
+          f"interface classes; wall {wall:.2f} s (fp32 solve {info['t_solve_fp32_s']:.2f} s, "
+          f"{info['cycles']} cycles; refinement {info['t_refine_s']:.2f} s)")
+    check(info["refine_completed"], f"n_fine=72 refinement failed: {info.get('refine_error')}")
+    L = extra["L"]
+    t0 = time.perf_counter()
+    ref = np.sort(scipy.sparse.linalg.eigsh(L + scipy.sparse.identity(L.shape[0]), k=110,
+                                            which="SA", tol=1e-12)[0])[:100] - 1.0
+    lam, rel = extra["lam"], extra["rel_shifted"]
+    diff = np.abs(np.sort(lam) - ref)
+    print(f"  scipy eigsh {time.perf_counter() - t0:.2f} s; max |lambda - scipy| {diff.max():.3e} "
+          f"(atol 1e-8); true residual / |lambda + 1|: max {rel.max():.3e} (<= 3e-8), "
+          f"median {np.median(rel):.3e}")
+    print(f"    lowest eigenvalues {np.round(np.sort(lam)[:8], 10).tolist()}")
+    check(diff.max() <= 1e-8, f"n_fine=72: eigenvalues off scipy by {diff.max():.3e}")
+    check(rel.max() <= 3e-8, f"n_fine=72: true residual {rel.max():.3e} > 3e-8")
+    return check_operator_kernels(extra["op"], "n_fine=72")
+
+
+def phase_northstar(n_fine):
+    print(f"== north-star pipeline at n_fine={n_fine} (k=100 + 10, fp32 tol 3e-7, refinement "
+          "tol 1e-8)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    info, extra = _northstar().run(n_fine=n_fine, device="cuda", verbose=True)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    info.update(wall_s=wall, peak_device_gib=peak / 2**30, launches=launches)
+    print(f"  stages (s): neighbors {info['t_neighbors_s']:.2f}, reciprocity "
+          f"{info['t_reciprocity_s']:.2f}, composite build {info['t_build_composite_s']:.2f}, "
+          f"fp32 solve {info['t_solve_fp32_s']:.2f} ({info['cycles']} cycles, basis "
+          f"{info['max_basis']}, locked {info['n_locked']}), refinement {info['t_refine_s']:.2f}, "
+          f"host true residuals {info['t_true_residuals_s']:.2f}; total {wall:.2f}")
+    print(f"  {info['num_points']} points, M = {info['m_operator']}, "
+          f"{info['n_interface_classes']} interface classes, peak device memory "
+          f"{peak / 2**30:.2f} GiB")
+    print(f"  launches by dtype: {json.dumps(launches)}")
+    print(f"  pairs_below_1e-8 {info['pairs_below_1e-8']}, 1e-7 {info['pairs_below_1e-7']}, "
+          f"1e-6 {info['pairs_below_1e-6']}; true residual max {info['true_residual_max']:.3e} "
+          f"(scripts/northstar.py's measure), / |lambda + 1| max "
+          f"{info['true_residual_shifted_max']:.3e}")
+    print(f"  lowest eigenvalues {info['eigenvalues_head']}")
+    check(info["refine_completed"], f"refinement failed: {info.get('refine_error')}")
+    rel = extra["rel_shifted"]
+    check(bool(np.isfinite(extra["lam"]).all() and np.isfinite(rel).all()), "NaN in the result")
+    check(abs(float(np.min(extra["lam"]))) <= 1e-8, "lambda_0 (the constant mode) is not 0")
+    check(rel.max() <= 3e-8, f"true residual {rel.max():.3e} > 3e-8")
+    for name, dt in (("stencil_spmv", "float32"), ("stencil_spmv", "float64"),
+                     ("apply_fused_interface", "float32"), ("apply_fused_interface", "float64"),
+                     ("stencil_spmm", "float32")):
+        check(launches[name][dt] > 0, f"{name} was not launched in {dt}")
+    max_abs = check_operator_kernels(extra["op"], f"n_fine={n_fine}")
+    info["busy"] = northstar_busy_shares(info, extra)
+    northstar_kernel_times(extra["op"], launches)
+    print(f"  record: {json.dumps(info)}")
+    return info, max_abs
+
+
+def busy_share(fn):
+    """(profiled wall s, device busy s) of one call of ``fn`` under
+    ``torch.profiler``: the kernels' and copies' own device time.  Only the
+    device activity is traced: a refinement round runs ~10^5 host ops, and
+    their trace takes tens of GB of host memory."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type != DeviceType.CPU)
+    return wall, busy_us / 1e6
+
+
+def northstar_busy_shares(info, extra):
+    """Device busy share of one restart cycle and of one refinement round,
+    each also timed without the profiler.  The cycle is the second of a
+    run: a two-cycle run less a one-cycle run from the same start (m - l
+    steps from the locked block, the host eigh of the arrowhead and the
+    Ritz rotation).  The round is ``max_rounds=1, tol=0``: a residual sweep,
+    the Rayleigh-Ritz rotation, the deflated CG of every chunk, and the
+    closing residual sweep."""
+    from lanczos_tpu_torch.solver.refine import refine_eigenpairs_dd_hosted
+    from lanczos_tpu_torch.solver.restart import eigsh_restarted
+
+    op, idx_map = extra["op"], extra["idx_map"]
+    kk = info["k"] + info["k_buffer"]
+    v0 = np.zeros(op.shape[0], dtype=np.float32)
+    v0[idx_map] = np.random.default_rng(99).uniform(-1, 1, size=info["num_points"])
+    kw = dict(k=kk, tol=3e-7, v0=v0, compensated=True, max_basis=info["max_basis"],
+              n_locked=info["n_locked"], rr_verify=False)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0, *busy_share(fn))
+
+    busy_share(lambda: op.matvec(torch.as_tensor(v0, device="cuda")))  # the profiler's start-up
+    runs = [timed(lambda c=c: eigsh_restarted(op, max_cycles=c, **kw)) for c in (1, 2)]
+    out = {"restart_cycle": tuple(b - a for a, b in zip(*runs))}
+    lam, X = extra["lam_shifted"], extra["X64"]
+
+    def refine_round():
+        refine_eigenpairs_dd_hosted(op, lam, X.copy(), tol=0.0, max_rounds=1, cg_steps=200,
+                                    col_chunk=8, k_report=info["k"])
+
+    out["refine_round"] = timed(refine_round)
+    for name, (wall, pwall, busy) in out.items():
+        print(f"  {name}: wall {wall:.3f} s; under the profiler {pwall:.3f} s with the device busy "
+              f"{busy:.3f} s ({busy / pwall:.1%} of the profiled wall, {busy / wall:.1%} of the "
+              f"unprofiled)")
+    return {name: dict(wall_s=w, profiled_wall_s=p, device_busy_s=b)
+            for name, (w, p, b) in out.items()}
+
+
+def check_operator_kernels(op, label):
+    """Each kernel against its plain version, on the same CUDA inputs, at
+    the shapes the north-star pipeline gives it on ``op``: the SpMV in fp32
+    (the restarted solve) and fp64 (the refinement's residuals) and the
+    SpMM at b=8 in fp32 (the deflated CG) on each level grid; the
+    interface kernel in fp32 at b=1 and 8 and in fp64 at b=1, on the
+    fp64 copy the refinement builds.  Returns {kernel: max abs error}."""
+    from lanczos_tpu_torch.ops import interface_kernel as ik
+    from lanczos_tpu_torch.ops import stencil_kernels as sk
+    from lanczos_tpu_torch.ops.dd import to_float64
+
+    print(f"== kernels vs plain version on the {label} operator (max abs err, "
+          "max abs err / max |y_ref|)")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    max_abs = dict.fromkeys(("stencil_spmv", "stencil_spmm", "apply_fused_interface"), 0.0)
+
+    def hold(kernel, text, y, y_ref):
+        max_abs[kernel] = max(max_abs[kernel], against_plain(text, y, y_ref))
+
+    for dtype, o in ((torch.float32, op), (torch.float64, to_float64(op))):
+        name = str(dtype)[6:]
+        widths = (None, 8) if dtype == torch.float32 else (None,)
+        for level in o.level_ops:
+            shape = "x".join(map(str, level.grid_shape))
+            for b in widths:
+                x = torch.randn((level.shape[0],) if b is None else (level.shape[0], b),
+                                generator=gen, device="cuda", dtype=dtype)
+                if b is None:
+                    hold("stencil_spmv", f"{name} stencil_spmv level {shape}",
+                         sk.stencil_spmv(level, x), sk.stencil_spmv_reference(level, x))
+                else:
+                    hold("stencil_spmm", f"{name} stencil_spmm b={b} level {shape}",
+                         sk.stencil_spmm(level, x), sk.stencil_spmm_reference(level, x))
+        fi = o.fused
+        if fi.num_rows == 0:
+            print(f"  {name} apply_fused_interface: no interface rows on this operator")
+            continue
+        for b in widths:
+            shape = (o.shape[0],) if b is None else (o.shape[0], b)
+            x = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+            x = x * (o.live if b is None else o.live[:, None])
+            y0 = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+            hold("apply_fused_interface", f"{name} apply_fused_interface b={b or 1} "
+                 f"({fi.num_rows} rows)", ik.apply_fused_interface(fi, x, y0.clone()),
+                 ik.apply_fused_interface_reference(fi, x, y0.clone()))
+        del o
+        torch.cuda.empty_cache()
+    return max_abs
+
+
+def northstar_kernel_times(op, launches):
+    """Kernel, plain and cuSPARSE times on the north-star operator: the
+    interface kernel in fp32 and fp64, the SpMV in fp32 and fp64 and the
+    SpMM at b=8 in fp32 on each level grid."""
+    from lanczos_tpu_torch.ops import interface_kernel as ik
+    from lanczos_tpu_torch.ops import stencil_kernels as sk
+    from lanczos_tpu_torch.ops.dd import to_float64
+
+    print("== kernel times on the north-star operator (graph: replays of 50 calls, median of "
+          "20; eager: median of 5 x 100 calls; plain 5 x 10)")
+    floor_ms, copy_gbs = launch_floor(), copy_rate()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for dtype, o in ((torch.float32, op), (torch.float64, to_float64(op))):
+        name = str(dtype)[6:]
+        elem = torch.finfo(dtype).bits // 8
+        peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_FP64_FLOPS
+        m = o.shape[0]
+        fi = o.fused
+        xs = itertools.cycle([torch.randn(m, generator=gen, device="cuda", dtype=dtype) * o.live
+                              for _ in range(8)])
+        y = torch.zeros(m, device="cuda", dtype=dtype)
+        csr_i, _ = interface_csr(fi, dtype)
+        print(f"  apply_fused_interface {name}: {fi.cls.shape[0]} classes, {fi.num_rows} rows, "
+              f"{fi.tap_reads} tap reads; {launches['apply_fused_interface'][name]} launches in "
+              "the pipeline")
+        kernel_row(
+            f"apply_fused_interface {name}", lambda: ik.apply_fused_interface(fi, next(xs), y),
+            lambda: ik.apply_fused_interface_reference(fi, next(xs), y),
+            lambda: torch.mv(csr_i, next(xs)), interface_bytes(fi, elem), 2 * fi.tap_reads,
+            copy_gbs, floor_ms, plain_launches=10, peak_flops=peak)
+        del csr_i
+        print(f"  stencil_spmv {name}: {launches['stencil_spmv'][name]} launches in the pipeline; "
+              f"stencil_spmm: {launches['stencil_spmm'][name]}")
+        for level in o.level_ops:
+            ml = level.shape[0]
+            shape = "x".join(map(str, level.grid_shape))
+            xl = itertools.cycle([torch.randn(ml, generator=gen, device="cuda", dtype=dtype)
+                                  for _ in range(8)])
+            csr_l = stencil_csr(level)
+            kernel_row(
+                f"stencil_spmv {name} level {shape}",
+                lambda level=level, xl=xl: sk.stencil_spmv(level, next(xl)),
+                lambda level=level, xl=xl: sk.stencil_spmv_reference(level, next(xl)),
+                lambda csr_l=csr_l, xl=xl: torch.mv(csr_l, next(xl)),
+                (2 if level.diag is None else 3) * elem * ml, 2 * len(level.offsets) * ml,
+                copy_gbs, floor_ms, plain_launches=10, peak_flops=peak)
+            if dtype == torch.float32:
+                # The deflated CG's matmat: (M, 8) read and written, 64 B/pt.
+                Xl = torch.randn((ml, 8), generator=gen, device="cuda")
+                kernel_row(
+                    f"stencil_spmm b=8 {name} level {shape}",
+                    lambda level=level, Xl=Xl: sk.stencil_spmm(level, Xl),
+                    lambda level=level, Xl=Xl: sk.stencil_spmm_reference(level, Xl),
+                    lambda csr_l=csr_l, Xl=Xl: torch.sparse.mm(csr_l, Xl),
+                    (64 if level.diag is None else 68) * ml, 2 * len(level.offsets) * 8 * ml,
+                    copy_gbs, floor_ms, plain_launches=10)
+            del csr_l
+        torch.cuda.empty_cache()
+
+
+def phase_nonsym_refine(lt, lat):
+    from lanczos_tpu_torch.solver.refine import refine_eigenpairs_dd_nonsym
+
+    print("== eigs_nonsym(compensated=True) at N=60 (fp32) and refine_eigenpairs_dd_nonsym vs "
+          "the lanczos_tpu fp64 golden")
+    golden = load_golden(60)
+    c = golden["config"]
+    op, idx_map = lt.assemble_irregular_hamiltonian_composite2(
+        lat, lt.deuteron_potential_3d, dtype=torch.float32, device="cuda")
+    v0 = lattice_start(op, idx_map, lat.num_points, c["v0_seed"])
+    t0 = time.perf_counter()
+    res = lt.eigs_nonsym(op, k=c["k"], max_basis=c["max_basis"], tol=c["tol"], v0=v0,
+                         compensated=True)
+    torch.cuda.synchronize()
+    print(f"  eigs_nonsym {time.perf_counter() - t0:.2f} s")
+    print(res.summary())
+    vals, resid = res.eigenvalues.cpu().numpy(), res.residuals.cpu().numpy()
+    norms = (golden["norm_inf"], golden["norm_1"])
+    check_against("N=60 fp32 compensated vs fp64 golden", vals, resid, golden, EPS32, norms,
+                  c["tol"])
+    t0 = time.perf_counter()
+    lam, Xh, Xl, rel = refine_eigenpairs_dd_nonsym(op, vals, res.eigenvectors, tol=1e-9,
+                                                   max_rounds=8, cg_steps=60)
+    torch.cuda.synchronize()
+    print(f"  refine_eigenpairs_dd_nonsym {time.perf_counter() - t0:.2f} s: relative residuals "
+          f"{np.array2string(rel, precision=3)} (against the fp32-stored operator)")
+    check(bool(np.isfinite(lam).all() and np.isfinite(rel).all()), "refined pairs not finite")
+    # Clusters: sorted neighbours within 1% of max(|lam|, 1).  A cluster
+    # that holds the highest computed pair may have members beyond k, which
+    # the refinement cannot deflate: its pairs are printed, not held.
+    # Every pair of a complete cluster is held at 1e-8.
+    order = np.argsort(lam)
+    s = lam[order]
+    gaps = np.abs(np.diff(s)) > 1e-2 * np.maximum(np.abs(s[1:]), 1.0)
+    cluster = np.concatenate([[0], np.cumsum(gaps)])
+    held = order[cluster != cluster[-1]]
+    print(f"  complete clusters: pairs {held.tolist()} held at 1e-8 (max {rel[held].max():.3e}); "
+          f"pairs {order[cluster == cluster[-1]].tolist()} in the cluster of the highest pair")
+    check(order[0] in held, "the ground state lies in an incomplete cluster")
+    check(rel[held].max() <= 1e-8, "a refined pair of a complete cluster is above 1e-8")
+    check(float((Xh * (1 - op.live)[:, None]).abs().max()) == 0.0,
+          "refined vectors are not zero on the dead slots")
+    # The refined pairs are eigenpairs of the fp32-stored operator: held to
+    # the golden (fp64 coefficients) within its storage-rounding tolerance.
+    rel_scaled = rel * np.abs(lam) / np.maximum(np.abs(lam), 1.0)
+    check_against("refined N=60 vs fp64 golden", lam, rel_scaled, golden, EPS32, norms, c["tol"])
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script drives the port on a GPU")
@@ -892,7 +1421,30 @@ def main():
     del ops
     torch.cuda.empty_cache()
     irregular = phase_irregular_flagship(lt, host)
+    print(f"== irregular path done at {time.perf_counter() - t_start:.1f} s")
+
+    n60 = {name: lat for name, lat, _ in lattices}["N=60"]
+    phases = {
+        11: phase_compensated_dots,
+        12: lambda: phase_restarted_flagship(lt, flagship),
+        13: lambda: phase_checkpoint(lt),
+        14: phase_northstar_small,
+        15: lambda: phase_northstar(NORTHSTAR_N_FINE),
+        16: lambda: phase_nonsym_refine(lt, n60),
+    }
+    results = {}
+    for n, phase in phases.items():
+        t0 = time.perf_counter()
+        results[n] = phase()
+        torch.cuda.empty_cache()
+        print(f"== phase {n} done in {time.perf_counter() - t0:.1f} s "
+              f"(at {time.perf_counter() - t_start:.1f} s)")
     print(f"== all phases done at {time.perf_counter() - t_start:.1f} s")
+    northstar, northstar_abs = results[15]
+    for errs in (results[14], northstar_abs):
+        for name, err in errs.items():
+            max_abs[name] = max(max_abs[name], err)
+    flagship = flagship[torch.float32]
 
     kernels = [
         dict(name="stencil_spmv", route="cuda", source="lanczos_tpu_torch/csrc/stencil.cu",
@@ -906,7 +1458,8 @@ def main():
     ]
     for k in kernels:
         t = times[k["name"]]
-        k.update(max_abs_err=max_abs[k["name"]], **t)
+        k.update(max_abs_err=max_abs[k["name"]], **t,
+                 northstar_launches_by_dtype=northstar["launches"][k["name"]])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,12 +3,18 @@ CUDA kernels for the NVIDIA H100 (sm_90a).
 
 The port of ``lanczos_tpu`` (JAX/Pallas on a TPU), which stays beside it as
 the reference that every module here is tested against.  This package holds
-two paths:
+these paths:
 
 * the regular grid: potentials -> regular-grid Hamiltonian -> matrix-free
   stencil operator (CUDA stencil SpMV/SpMM kernels) -> ``eigsh`` (Lanczos
   with full reorthogonalization -> tridiagonal eigh, Ritz vectors and
   acceptance);
+* ``eigsh_restarted``: thick-restart Lanczos in a bounded basis, with
+  cycle checkpoints (``utils/checkpoint.py``) and the ``compensated``
+  reductions (``ops/compensated.py``);
+* the double-word refinement (``solver/refine.py`` on ``ops/dd.py``), which
+  takes float32 pairs to 1e-8 residuals (the north-star path,
+  ``scripts/northstar_torch.py``);
 * the irregular multi-resolution lattice: ``build_lattice`` -> least-squares
   Laplacian rows -> ``assemble_irregular_hamiltonian_composite2`` (the
   CompositeV2 operator: per-level stencil kernels plus the CUDA fused
@@ -37,6 +43,7 @@ from .ops.operators import (  # noqa: E402
 )
 from .ops.assemble import ell_from_coo, ell_from_scipy  # noqa: E402
 from .solver.api import eigsh  # noqa: E402
+from .solver.restart import eigsh_restarted  # noqa: E402
 from .solver.lanczos import LanczosFactorization, lanczos  # noqa: E402
 from .solver.results import EigResult, match_eigs  # noqa: E402
 from .solver.tridiag import (  # noqa: E402

@@ -4,9 +4,11 @@
   python -m lanczos_tpu_torch solve-irregular -N 60 -L 25 --box-depth 3 -n 250 -k 5
 
 ``solve-regular`` builds the regular-grid 3D deuteron Hamiltonian and solves
-it with ``eigsh`` on ``--device`` (``cuda`` by default; there the stencil
-SpMV/SpMM run as CUDA kernels).  ``--restart`` and ``--block-size > 1`` name
-solvers that are not yet ported and exit with an error.
+it on ``--device`` (``cuda`` by default; there the stencil SpMV/SpMM run as
+CUDA kernels) with ``eigsh``, or with the memory-bounded thick-restart
+``eigsh_restarted`` under ``--restart`` (``--max-basis``, ``--tol``).
+``--block-size > 1`` names the block solver, not yet ported, and exits
+with an error.
 
 ``solve-irregular`` builds the multi-resolution lattice and solves the raw
 non-symmetric Hamiltonian with Krylov–Schur (``eigs_nonsym``, default) or
@@ -16,7 +18,9 @@ on ``--device cpu`` on the padded-ELL assembly, as the JAX package does on
 its CPU backend.  Two-sided runs in float64 whatever ``--dtype`` says: in
 float32 its recurrence collapses within ~15 iterations.  Start vectors are
 drawn in lattice order from ``--seed`` (the same on both devices) and
-scattered into the CompositeV2 layout, dead slots zero.
+scattered into the CompositeV2 layout, dead slots zero.  ``--compensated``
+runs either solver's scalar reductions through the error-free-transform
+dot (``ops/compensated.py``).
 """
 
 from __future__ import annotations
@@ -63,10 +67,6 @@ def _where(device):
 def cmd_solve_regular(args):
     import lanczos_tpu_torch as lt
 
-    if args.restart:
-        raise SystemExit(
-            "--restart (eigsh_restarted) is not yet ported (ROADMAP Queue 1 #8)"
-        )
     if args.block_size > 1:
         raise SystemExit(
             "--block-size > 1 (eigsh_block_restarted) is not yet ported "
@@ -79,9 +79,14 @@ def cmd_solve_regular(args):
         args.N, args.L, lt.deuteron_potential_3d, stencil=args.stencil,
         dtype=args.dtype, device=args.device,
     )
-    res = lt.eigsh(
-        h, k=args.k, n=args.n, which="SA", seed=args.seed, reorth=args.reorth,
-    )
+    if args.restart:
+        res = lt.eigsh_restarted(
+            h, k=args.k, max_basis=args.max_basis, tol=args.tol, seed=args.seed,
+        )
+    else:
+        res = lt.eigsh(
+            h, k=args.k, n=args.n, which="SA", seed=args.seed, reorth=args.reorth,
+        )
     _sync(args.device)
     print(f"# regular {args.N}^3 grid, {args.stencil}-pt stencil, "
           f"{time.perf_counter() - t0:.1f}s on {_where(args.device)}")
@@ -108,10 +113,6 @@ def _lattice_start(gen, p, op, idx_map):
 def cmd_solve_irregular(args):
     import lanczos_tpu_torch as lt
 
-    if args.compensated:
-        raise SystemExit(
-            "--compensated (ops/compensated.py) is not yet ported (ROADMAP Queue 1 #6)"
-        )
     _require_device(args.device)
     t0 = time.perf_counter()
     lat = lt.build_lattice(
@@ -144,6 +145,7 @@ def cmd_solve_irregular(args):
         res = lt.eigs_nonsym(
             op, k=args.k, max_basis=args.n, tol=args.tol,
             v0=_lattice_start(gen, lat.num_points, op, idx_map), verbose=args.verbose,
+            compensated=args.compensated,
         )
         _sync(args.device)
         print(f"# Krylov-Schur (Arnoldi), basis {args.n}, "
@@ -160,7 +162,8 @@ def cmd_solve_irregular(args):
             )
         v0 = _lattice_start(gen, lat.num_points, h, idx_map)
         w0 = _lattice_start(gen, lat.num_points, h, idx_map)
-        fac = lt.two_sided_lanczos(h, args.n, v0=v0, w0=w0, op_transpose=h.transpose())
+        fac = lt.two_sided_lanczos(h, args.n, v0=v0, w0=w0, op_transpose=h.transpose(),
+                                   compensated=args.compensated)
         res = lt.two_sided_eigs(fac, k=args.k, op=h, residual_tol=args.tol)
         _sync(args.device)
         print(f"# two-sided Lanczos, breakdown at "
@@ -189,7 +192,7 @@ def main(argv=None):
     p.add_argument("--reorth", default="full",
                    choices=["full", "selective", "periodic", "none"])
     p.add_argument("--restart", action="store_true",
-                   help="memory-bounded thick-restart solver (not yet ported)")
+                   help="memory-bounded thick-restart solver (eigsh_restarted)")
     p.add_argument("--max-basis", type=int, default=0,
                    help="restart basis bound (default 2k+30)")
     p.add_argument("--block-size", type=int, default=1,
@@ -214,7 +217,7 @@ def main(argv=None):
     p.add_argument("--tol", type=float, default=1e-4,
                    help="true relative residual acceptance threshold")
     p.add_argument("--compensated", action="store_true",
-                   help="error-free-transform scalar reductions (not yet ported)")
+                   help="error-free-transform scalar reductions")
     p.add_argument("--verbose", action="store_true")
     _add_common(p)
     p.set_defaults(fn=cmd_solve_irregular)

@@ -12,6 +12,7 @@ package.
 Public surface:
     available()            -> bool: the engine is built and loaded
     find_neighbors_native  -> backend for models.lattice.find_neighbors
+    reciprocal_mask_native -> edge reciprocity of a neighbor table
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["available", "find_neighbors_native"]
+__all__ = ["available", "find_neighbors_native", "reciprocal_mask_native"]
 
 _SRC = Path(__file__).resolve().with_name("neighbor_engine.cpp")
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -70,6 +71,9 @@ def _lib() -> Optional[ctypes.CDLL]:
     lib.count_neighbors.restype = None
     lib.fill_neighbors.argtypes = common + [ctypes.c_int64, _I64, _I64]
     lib.fill_neighbors.restype = None
+    lib.reciprocal_mask.argtypes = [_I64, ctypes.c_int64, ctypes.c_int64,
+                                    ctypes.POINTER(ctypes.c_uint8)]
+    lib.reciprocal_mask.restype = None
     return lib
 
 
@@ -119,3 +123,19 @@ def find_neighbors_native(
         *args, ctypes.c_int64(k), _ptr(nbrs, _I64), _ptr(rels, _I64)
     )
     return nbrs, rels
+
+
+def reciprocal_mask_native(nbrs: np.ndarray) -> Optional[np.ndarray]:
+    """keep[i, j] = True iff the edge (i -> nbrs[i, j]) has its reverse
+    edge; None when the engine is unavailable.  The native counterpart of
+    a sort + searchsorted pass over the edges (246 s at the 341M edges of
+    the JAX package's north-star lattice; seconds natively)."""
+    lib = _lib()
+    if lib is None:
+        return None
+    nbrs = np.ascontiguousarray(nbrs, dtype=np.int64)
+    p, k = nbrs.shape
+    keep = np.empty((p, k), dtype=np.uint8)
+    lib.reciprocal_mask(_ptr(nbrs, _I64), ctypes.c_int64(p), ctypes.c_int64(k),
+                        keep.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    return keep.astype(bool)

@@ -159,4 +159,24 @@ void fill_neighbors(const int64_t* occupancy, const int64_t* coords,
     }
 }
 
+// Edge reciprocity: keep[i, j] = 1 iff the edge (i -> nbrs[i, j]) has its
+// reverse (nbrs[i, j] -> i) among the neighbor's own k entries; -1 pads
+// are never kept.  One scan of the neighbor's row per edge.
+void reciprocal_mask(const int64_t* nbrs, int64_t p, int64_t k, uint8_t* keep) {
+    for (int64_t i = 0; i < p; ++i) {
+        const int64_t base = i * k;
+        for (int64_t j = 0; j < k; ++j) {
+            const int64_t dst = nbrs[base + j];
+            uint8_t ok = 0;
+            if (dst >= 0) {
+                const int64_t* row = nbrs + dst * k;
+                for (int64_t t = 0; t < k; ++t) {
+                    if (row[t] == i) { ok = 1; break; }
+                }
+            }
+            keep[base + j] = ok;
+        }
+    }
+}
+
 }  // extern "C"

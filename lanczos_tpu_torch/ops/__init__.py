@@ -15,3 +15,5 @@ from .interface_kernel import (
     apply_fused_interface_reference,
     plan_interface_kernel,
 )
+from .compensated import dd_sum_tree, dot2, dot2_rounded, norm2, two_prod, two_sum
+from .dd import dd_split_scalar, matmat_dd, matvec_dd, to_float64

@@ -22,7 +22,8 @@ Counterpart of ``lanczos_tpu/ops/interface_kernel.py``:
 Dispatch is by the tensor's device only: a CPU tensor goes to the plain
 version, a CUDA tensor launches the kernel or raises.  There is no fallback
 and no switch.  ``apply_fused_interface.launches`` counts launches,
-incremented after a successful launch and nowhere else.
+incremented after a successful launch and nowhere else
+(``launches_by_dtype`` splits it by dtype).
 """
 
 from __future__ import annotations
@@ -322,7 +323,9 @@ def apply_fused_interface(fi: FusedInterface, x: torch.Tensor, y: torch.Tensor):
     if err != 0:
         raise RuntimeError(f"fused_interface launch failed with CUDA error {err}")
     apply_fused_interface.launches += 1
+    apply_fused_interface.launches_by_dtype[x.dtype] += 1
     return y
 
 
 apply_fused_interface.launches = 0
+apply_fused_interface.launches_by_dtype = dict.fromkeys(_DTYPES, 0)

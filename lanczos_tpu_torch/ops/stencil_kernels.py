@@ -25,7 +25,8 @@ version (``*_reference``: a sum of ``torch.roll``s over the taps plus the
 diagonal), a CUDA tensor launches the kernel or raises.  There is no
 fallback and no switch.  Each wrapper counts its kernel launches in
 ``<wrapper>.launches``, incremented where the kernel is launched and
-nowhere else, so a run can show that its main path went through the kernel.
+nowhere else, so a run can show that its main path went through the kernel;
+``<wrapper>.launches_by_dtype`` splits the same count by dtype.
 What a launch needs from the operator (the dense weights, and per dtype,
 device and width the tile and z-chunk) is kept on the operator and renewed
 when its weights or diag change.
@@ -305,6 +306,7 @@ def stencil_spmv(op, x: torch.Tensor) -> torch.Tensor:
         return stencil_spmv_reference(op, x)
     y = _launch("stencil_spmv", op, x)
     stencil_spmv.launches += 1
+    stencil_spmv.launches_by_dtype[x.dtype] += 1
     return y
 
 
@@ -317,8 +319,11 @@ def stencil_spmm(op, X: torch.Tensor) -> torch.Tensor:
         return stencil_spmm_reference(op, X)
     Y = _launch("stencil_spmm", op, X)
     stencil_spmm.launches += 1
+    stencil_spmm.launches_by_dtype[X.dtype] += 1
     return Y
 
 
 stencil_spmv.launches = 0
 stencil_spmm.launches = 0
+stencil_spmv.launches_by_dtype = dict.fromkeys(_DTYPES, 0)
+stencil_spmm.launches_by_dtype = dict.fromkeys(_DTYPES, 0)

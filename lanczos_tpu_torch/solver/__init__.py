@@ -1,4 +1,11 @@
 from .api import eigsh
+from .restart import eigsh_restarted
+from .refine import (
+    refine_eigenpairs_dd,
+    refine_eigenpairs_dd_hosted,
+    refine_eigenpairs_dd_nonsym,
+    refine_eigenpairs_fp64_host,
+)
 from .lanczos import LanczosFactorization, lanczos, lanczos_kernel
 from .results import EigResult, match_eigs
 from .tridiag import (

@@ -59,9 +59,12 @@ def eigsh(
 
     ``ghost_filter`` defaults to True when reorthogonalization is not "full"
     (without full reorth, spurious copies of converged eigenvalues appear and
-    are filtered by the Cullum–Willoughby test).
+    are filtered by the Cullum–Willoughby test).  ``compensated=True`` runs
+    the recurrence's reductions through the error-free-transform dot.
     """
     if block_size > 1:
+        if compensated:
+            raise ValueError("compensated is not supported with block_size > 1")
         raise NotImplementedError(
             "block_size > 1 (block Lanczos, solver/block.py) is not yet "
             "ported (ROADMAP Queue 1 #11)"

@@ -35,7 +35,7 @@ import torch
 
 from .._util import as_torch_dtype, to_numpy
 from ..ops.operators import LinearOperator
-from .lanczos import _reject_compensated
+from .lanczos import _default_dot, _resolve_dot
 from .results import EigResult, acceptance_inner_prod
 
 __all__ = ["ArnoldiFactorization", "arnoldi", "arnoldi_kernel", "eigs_nonsym"]
@@ -59,8 +59,10 @@ class ArnoldiFactorization:
         return self.H.shape[1]
 
 
-def _extend(matvec: Callable, V, B, j0: int, j1: int, breakdown_iter, reorth_passes: int):
-    """Arnoldi steps j0..j1-1 into V (rows) and B (columns), in place."""
+def _extend(matvec: Callable, V, B, j0: int, j1: int, breakdown_iter, reorth_passes: int,
+            dot: Callable = _default_dot):
+    """Arnoldi steps j0..j1-1 into V (rows) and B (columns), in place;
+    ``dot`` takes the norm of each new direction."""
     eps = float(torch.finfo(V.dtype).eps)
     for j in range(j0, j1):
         w = matvec(V[j])
@@ -70,7 +72,7 @@ def _extend(matvec: Callable, V, B, j0: int, j1: int, breakdown_iter, reorth_pas
             c = Vj @ w
             w = w - c @ Vj
             h = h + c
-        hn = torch.sqrt(torch.dot(w, w))
+        hn = torch.sqrt(dot(w, w))
         ok = hn > 10 * eps
         breakdown_iter = torch.where(ok, breakdown_iter, breakdown_iter.clamp(max=j))
         V[j + 1] = w * torch.where(ok, 1.0 / torch.where(ok, hn, 1.0), 0.0)
@@ -90,15 +92,16 @@ def arnoldi_kernel(
     """n Arnoldi steps from v0 (need not be normalized), on v0's device.
 
     Orthogonalization is CGS with ``reorth_passes`` passes (CGS2 default —
-    the classical twice-is-enough result).
+    the classical twice-is-enough result).  ``compensated=True`` takes the
+    norms with ``dot2_rounded`` (``ops/compensated.py``).
     """
-    _reject_compensated(compensated)
+    dot = _resolve_dot(_default_dot, compensated)
     m = v0.shape[0]
     V = torch.zeros((n + 1, m), dtype=v0.dtype, device=v0.device)
-    V[0] = v0 / torch.sqrt(torch.dot(v0, v0))
+    V[0] = v0 / torch.sqrt(dot(v0, v0))
     H = torch.zeros((n + 1, n), dtype=v0.dtype, device=v0.device)
     bki = torch.tensor(n, dtype=torch.int64, device=v0.device)
-    bki = _extend(matvec, V, H, 0, n, bki, reorth_passes)
+    bki = _extend(matvec, V, H, 0, n, bki, reorth_passes, dot)
     return ArnoldiFactorization(V=V, H=H, breakdown_iter=bki)
 
 
@@ -138,12 +141,12 @@ def arnoldi(
     ``v0`` defaults to Uniform(-1, 1) numbers from a ``torch.Generator``
     seeded with ``seed``, drawn on the CPU.
     """
-    _reject_compensated(compensated)
     if n > op.shape[0]:
         raise ValueError("n cannot exceed operator dimension")
     dtype = _check_dtype(op, dtype)
     return arnoldi_kernel(
-        op.matvec, _start_vector(op, v0, seed, dtype), n, reorth_passes=reorth_passes
+        op.matvec, _start_vector(op, v0, seed, dtype), n, reorth_passes=reorth_passes,
+        compensated=compensated,
     )
 
 
@@ -221,8 +224,9 @@ def eigs_nonsym(
     eigenvalues and residuals in float64).  The run stops when every pair's
     true residual is below ``tol``, when two verifications in a row fail to
     improve the worst residual by 1.2x, or after ``max_cycles``.
+    ``compensated=True`` takes each cycle's norms with ``dot2_rounded``.
     """
-    _reject_compensated(compensated)
+    dot = _resolve_dot(_default_dot, compensated)
     mdim = op.shape[0]
     dtype = _check_dtype(op, dtype)
     m = max_basis or max(2 * k + 30, k + 12)
@@ -238,7 +242,7 @@ def eigs_nonsym(
     stall = 0
 
     for cycle in range(max_cycles):
-        _extend(op.matvec, V, B, l, m, torch.tensor(m, device=op.device), reorth_passes)
+        _extend(op.matvec, V, B, l, m, torch.tensor(m, device=op.device), reorth_passes, dot)
         Bh = to_numpy(B).astype(np.float64)
         Bm = Bh[:m, :m]
         bout = float(Bh[m, m - 1])

@@ -72,12 +72,29 @@ def _default_basis_dot(V, v):
     return V @ v
 
 
-def _reject_compensated(compensated: bool) -> None:
-    if compensated:
-        raise NotImplementedError(
-            "compensated=True needs the error-free-transform dot of "
-            "ops/compensated.py, not yet ported (ROADMAP Queue 1 #6)"
-        )
+def _resolve_dot(dot, compensated: bool):
+    """Swap the default vector-vector dot for the error-free-transform one
+    (``ops/compensated.py:dot2_rounded``) when ``compensated``.
+
+    Compensation targets the recurrence's reductions (alpha, beta, norms),
+    whose plain float32 rounding floors the Ritz residuals; the
+    reorthogonalization products stay plain (CGS2 corrects itself).  A
+    custom ``dot`` is kept, with a warning.
+    """
+    if not compensated:
+        return dot
+    if dot is _default_dot:
+        from ..ops.compensated import dot2_rounded
+
+        return dot2_rounded
+    import warnings
+
+    warnings.warn(
+        "compensated=True has no effect when a custom dot is supplied; "
+        "compensation applies only to the default dot",
+        stacklevel=3,
+    )
+    return dot
 
 
 def _orthogonalize(V, v, basis_dot, passes: int):
@@ -115,9 +132,10 @@ def lanczos_segment(
     ``V`` (n, M) holds rows [0, j0); ``r`` is the current unnormalized
     residual; ``alpha_h`` (n,) / ``beta_h`` (n-1,) are the histories filled
     up to j0.  Fills ``V``, ``alpha_h`` and ``beta_h`` in place and returns
-    (V, r, alpha_h, beta_h, breakdown_iter).
+    (V, r, alpha_h, beta_h, breakdown_iter).  ``compensated=True`` runs
+    every alpha/beta/norm reduction through ``dot2_rounded``.
     """
-    _reject_compensated(compensated)
+    dot = _resolve_dot(dot, compensated)
     if reorth not in ("full", "none", "periodic"):
         raise ValueError(f"unknown reorth strategy: {reorth!r}")
     if breakdown_tol is None:
@@ -168,8 +186,9 @@ def lanczos_kernel(
     compensated: bool = False,
 ) -> LanczosFactorization:
     """Run n Lanczos steps from the (M,) start vector v0 (need not be
-    normalized).  ``reorth`` is one of full, none, periodic, selective."""
-    _reject_compensated(compensated)
+    normalized).  ``reorth`` is one of full, none, periodic, selective;
+    ``compensated=True`` runs the reductions through ``dot2_rounded``."""
+    dot = _resolve_dot(dot, compensated)
     if reorth == "selective":
         return _lanczos_selective_kernel(
             matvec, v0, n, reorth_passes=reorth_passes, dot=dot,
@@ -276,8 +295,9 @@ def lanczos(
     from a ``torch.Generator`` seeded with ``seed``, drawn on the CPU so
     every device starts from the same vector.  ``dtype`` must be the
     operator's own (the default): the kernels take one dtype.
+    ``compensated=True`` runs the recurrence's reductions through the
+    error-free-transform dot (``ops/compensated.py``).
     """
-    _reject_compensated(compensated)
     m = op.shape[0]
     if n > m:
         raise ValueError(f"n={n} cannot exceed operator dimension M={m}")
@@ -295,5 +315,5 @@ def lanczos(
         raise ValueError(f"v0 has shape {tuple(v0.shape)}, expected ({m},)")
     return lanczos_kernel(
         op.matvec, v0, n, reorth=reorth, reorth_passes=reorth_passes,
-        reorth_period=reorth_period,
+        reorth_period=reorth_period, compensated=compensated,
     )

@@ -36,6 +36,8 @@ class EigResult:
                   (1.0 = perfect eigenpair), or NaN if not computed.
     residuals_are_estimates: True when ``residuals`` are cheap model
                   estimates rather than operator-verified values.
+    cycles:       restart cycles completed (``eigsh_restarted``, a resumed
+                  run's included; 0 for the unrestarted solvers).
     """
 
     eigenvalues: torch.Tensor
@@ -43,6 +45,7 @@ class EigResult:
     residuals: torch.Tensor
     inner_prod: torch.Tensor
     residuals_are_estimates: bool = False
+    cycles: int = 0
 
     @property
     def k(self) -> int:

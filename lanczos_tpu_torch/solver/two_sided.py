@@ -40,7 +40,7 @@ import torch
 from .._util import to_numpy
 from ..ops.operators import LinearOperator
 from .arnoldi import _check_dtype
-from .lanczos import _reject_compensated
+from .lanczos import _default_dot, _resolve_dot
 from .results import EigResult, acceptance_inner_prod
 
 __all__ = [
@@ -109,8 +109,11 @@ def two_sided_lanczos_kernel(
     breakdown_tol: Optional[float] = None,
     compensated: bool = False,
 ) -> TwoSidedFactorization:
-    """n two-sided Lanczos steps from the right/left start vectors v0, w0."""
-    _reject_compensated(compensated)
+    """n two-sided Lanczos steps from the right/left start vectors v0, w0.
+
+    ``compensated=True`` runs the scalar reductions (w, alpha, norms)
+    through ``dot2_rounded`` (``ops/compensated.py``)."""
+    dot = _resolve_dot(_default_dot, compensated)
     m = v0.shape[0]
     dtype, device = v0.dtype, v0.device
     if breakdown_tol is None:
@@ -118,11 +121,11 @@ def two_sided_lanczos_kernel(
         breakdown_tol = float(100 * torch.finfo(dtype).eps)
 
     def norm(x):
-        return torch.sqrt(torch.dot(x, x))
+        return torch.sqrt(dot(x, x))
 
     # Biorthogonal init: q0 unit norm, p0 scaled so p0.q0 = 1.
     q0 = v0 / norm(v0)
-    p0 = w0 / torch.dot(q0, w0)
+    p0 = w0 / dot(q0, w0)
     Q = torch.zeros((n, m), dtype=dtype, device=device)
     P = torch.zeros((n, m), dtype=dtype, device=device)
     Q[0], P[0] = q0, p0
@@ -133,7 +136,7 @@ def two_sided_lanczos_kernel(
     gamma_h = torch.zeros_like(beta_h)
     drift_h = torch.zeros(n, dtype=dtype, device=device)
     pn_h = torch.zeros(n, dtype=dtype, device=device)
-    alpha[0] = (torch.dot(p0, r0) + torch.dot(q0, s0)) / 2.0
+    alpha[0] = (dot(p0, r0) + dot(q0, s0)) / 2.0
     pn_h[0] = norm(p0)
     r = r0 - alpha[0] * q0
     s = s0 - alpha[0] * p0
@@ -146,7 +149,7 @@ def two_sided_lanczos_kernel(
             for _ in range(reorth_passes):
                 r = r - (Pj @ r) @ Qj
                 s = s - (Qj @ s) @ Pj
-        w = torch.dot(r, s)
+        w = dot(r, s)
         rn, sn = norm(r), norm(s)
         # Breakdown when r.s ~ 0 RELATIVE to ||r|| ||s||, or when either
         # residual vanishes (invariant subspace — benign termination).
@@ -163,7 +166,7 @@ def two_sided_lanczos_kernel(
         Q[j], P[j] = q, p
         r = matvec(q) - gamma * Q[j - 1]
         s = rmatvec(p) - beta * P[j - 1]
-        a = (torch.dot(p, r) + torch.dot(q, s)) / 2.0
+        a = (dot(p, r) + dot(q, s)) / 2.0
         r = r - a * q
         s = s - a * p
         alpha[j], beta_h[j - 1], gamma_h[j - 1] = a, beta, gamma
@@ -194,9 +197,9 @@ def two_sided_lanczos(
     or an EllOperator's); else ``op.rmatvec``.  ``v0``/``w0`` default to
     Uniform(-1, 1) numbers from one ``torch.Generator`` seeded with
     ``seed``, drawn on the CPU (right vector first).  A CompositeV2's start
-    vectors must be masked with its ``live``.
+    vectors must be masked with its ``live``.  ``compensated=True`` runs
+    the scalar reductions through ``dot2_rounded``.
     """
-    _reject_compensated(compensated)
     m = op.shape[0]
     if n > m:
         raise ValueError("n cannot exceed operator dimension")
@@ -212,7 +215,8 @@ def two_sided_lanczos(
         vecs.append(v)
     rmatvec = op_transpose.matvec if op_transpose is not None else op.rmatvec
     return two_sided_lanczos_kernel(
-        op.matvec, rmatvec, *vecs, n, reorth=reorth, reorth_passes=reorth_passes
+        op.matvec, rmatvec, *vecs, n, reorth=reorth, reorth_passes=reorth_passes,
+        compensated=compensated,
     )
 
 

@@ -159,10 +159,6 @@ def test_nonsymmetric_tridiag_eig_matches_jax():
 
 def test_entry_point_checks(ops):
     _, E, _, _ = ops
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        pt.eigs_nonsym(E, k=2, compensated=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        pt.two_sided_lanczos(E, 5, compensated=True)
     with pytest.raises(ValueError):
         pt.eigs_nonsym(E, k=2, dtype=torch.float32)
     with pytest.raises(ValueError):

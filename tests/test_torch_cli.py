@@ -31,10 +31,24 @@ def test_solve_regular_matches_jax(capsys, tmp_path):
     assert vals.shape == (3,) and vecs.shape == (512, 3)
 
 
-@pytest.mark.parametrize("extra,queue_item", [(["--restart"], "#8"), (["--block-size", "2"], "#11")])
+@pytest.mark.parametrize("extra,queue_item", [(["--block-size", "2"], "#11")])
 def test_unported_solvers_exit_cleanly(extra, queue_item):
     with pytest.raises(SystemExit, match=f"not yet ported .*Queue 1 {queue_item}"):
         main(ARGS + extra)
+
+
+def test_solve_regular_restart_matches_jax(capsys):
+    """--restart runs eigsh_restarted, as lanczos_tpu's CLI routes it: the
+    converged float64 eigenvalues match the JAX package's (each from its
+    own seeded start vector)."""
+    res = main(["solve-regular", "-N", "12", "-k", "3", "--restart", "--tol", "1e-8",
+                "--dtype", "float64", "--device", "cpu"])
+    text = capsys.readouterr().out
+    assert "# regular 12^3 grid" in text and "on cpu" in text
+    H = lt.build_regular_hamiltonian(12, 25.0, lt.deuteron_potential_3d, stencil="27",
+                                     dtype="float64")
+    ref = lt.eigsh_restarted(H, k=3, tol=1e-8, dtype=np.float64)
+    np.testing.assert_allclose(res.eigenvalues.numpy(), np.asarray(ref.eigenvalues), rtol=1e-8)
 
 
 def test_cuda_device_without_card_fails_loudly():
@@ -77,9 +91,17 @@ def test_solve_irregular_matches_jax(solver, n, capsys, tmp_path, irregular_refe
     assert vecs.shape == (p, res.k)
 
 
+def test_solve_irregular_compensated_matches_jax(capsys, irregular_reference):
+    """--compensated reaches eigs_nonsym's error-free-transform reductions;
+    the eigenvalues match the JAX package's Krylov–Schur."""
+    _, ref = irregular_reference
+    res = main(IRR + ["-n", "40", "--compensated"])
+    assert "Krylov-Schur" in capsys.readouterr().out
+    assert (res.residuals.numpy() < 1e-4).all()
+    np.testing.assert_allclose(res.eigenvalues.numpy(), ref, rtol=1e-6)
+
+
 def test_solve_irregular_unported_options_exit_cleanly():
-    with pytest.raises(SystemExit, match="not yet ported .*Queue 1 #6"):
-        main(IRR + ["--compensated"])
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             main(["solve-irregular", "-N", "24", "--device", "cuda"])

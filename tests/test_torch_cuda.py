@@ -188,3 +188,47 @@ def test_cuda_composite_v2_matches_cpu_fp64():
     assert (ik.apply_fused_interface.launches, sk.stencil_spmv.launches,
             sk.stencil_spmm.launches) == (before[0] + 3, before[1] + 2 * levels, before[2] + levels)
 
+
+
+@pytest.mark.cuda
+def test_cuda_matvec_dd_runs_the_fp64_kernels():
+    """The dd path on the card: the float32 CompositeV2's float64 copy
+    launches the float64 SpMV and interface kernels and agrees with the
+    same copy on the CPU."""
+    from lanczos_tpu_torch.ops.dd import matvec_dd, to_float64
+
+    _require_card()
+    gpu, _ = _mixed_v2(torch.float32, "cuda")
+    cpu, _ = _mixed_v2(torch.float32, "cpu")
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal(cpu.shape[0])) * cpu.live.double()
+    xh = x.float()
+    xl = (x - xh.double()).float()
+    g64 = to_float64(gpu)
+    before = (ik.apply_fused_interface.launches_by_dtype[torch.float64],
+              sk.stencil_spmv.launches_by_dtype[torch.float64])
+    yh, yl = matvec_dd(g64, xh.cuda(), xl.cuda())
+    torch.cuda.synchronize()
+    after = (ik.apply_fused_interface.launches_by_dtype[torch.float64],
+             sk.stencil_spmv.launches_by_dtype[torch.float64])
+    assert after == (before[0] + 1, before[1] + len(gpu.level_meta))
+    want = to_float64(cpu).matvec(x)
+    got = yh.cpu().double() + yl.cpu().double()
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_cli_restart_and_compensated():
+    """``solve-regular --restart`` and ``solve-irregular --compensated`` on the
+    card agree with the same commands on the CPU."""
+    from lanczos_tpu_torch.cli import main
+
+    _require_card()
+    reg = ["solve-regular", "-N", "16", "-k", "3", "--restart", "--tol", "1e-9",
+           "--dtype", "float64"]
+    irr = ["solve-irregular", "-N", "24", "-k", "3", "-n", "40", "--compensated",
+           "--dtype", "float64"]
+    for args, rtol in ((reg, 1e-9), (irr, 1e-6)):
+        on_card = main(args + ["--device", "cuda"]).eigenvalues.cpu().numpy()
+        on_cpu = main(args + ["--device", "cpu"]).eigenvalues.numpy()
+        np.testing.assert_allclose(on_card, on_cpu, rtol=rtol)

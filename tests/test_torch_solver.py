@@ -70,8 +70,6 @@ def test_lanczos_entry_point_checks():
         pt.lanczos(P, 65)
     with pytest.raises(ValueError):
         pt.lanczos(P, 10, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        pt.lanczos(P, 10, compensated=True)
     with pytest.raises(NotImplementedError, match="Queue 1 #11"):
         pt.eigsh(P, k=2, n=10, block_size=2)
     # The default start vector comes from a seeded torch.Generator.
