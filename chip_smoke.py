@@ -12,10 +12,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. Each stencil kernel against its plain PyTorch version, on the same CUDA
    tensors, in fp32 and fp64, at the test shapes, the level grids of the
    N=60 and N=120 lattices (20^3, 30^3, 40^3, 60^3), two odd grids and the
-   flagship N=160^3: the SpMV, and the SpMM at b = 1, 3, 5, 8 and 20 (at b
-   = 8 and 20 also on a block that is not 16-byte aligned); then kernel,
-   plain and cuSPARSE CSR times at N=160^3 (the SpMM at b=20 in fp32 and
-   fp64).
+   flagship N=160^3: the SpMV, and the SpMM at b = 1, 3, 4, 5, 8 and 20 (at
+   b = 8 and 20 also on a block that is not 16-byte aligned); then kernel,
+   plain and cuSPARSE CSR times at N=160^3 (the SpMM at b=20 and at b=4,
+   the block solver's width, in fp32 and fp64).
 4. ``eigsh`` at N=64 (k=8, n=150, fp32) against golden eigenvalues that the
    JAX package computed in fp64 (``lanczos_tpu_torch/data/golden_eigsh_n64.json``).
 5. The flagship: N=160^3, L=25 fm, 27-point, ``eigsh(k=20, n=400, "SA")``
@@ -83,10 +83,31 @@ The north-star path (compensated reductions, thick restart, refinement):
     restart cycle and of one refinement round; and the kernel, plain and
     cuSPARSE times of the interface kernel (fp32, fp64), the SpMV (fp32,
     fp64) and the SpMM at b=8 (fp32) on the lattice's level grids.
-16. ``eigs_nonsym(compensated=True)`` at N=60 (fp32) and
+16. ``eigs_nonsym(compensated=True, k=8)`` at N=60 (fp32) and
     ``refine_eigenpairs_dd_nonsym`` of its pairs, against the N=60 golden;
     every refined pair of a complete cluster (one that does not hold the
-    highest computed pair) at a relative residual <= 1e-8.
+    highest computed pair; the 2.514/2.524 cluster only when all five of
+    its copies are there) at a relative residual <= 1e-8.
+
+The block solver, look-ahead, the CLI and the benchmark:
+
+17. ``eigsh_block_restarted(k=20, block_size=4)`` at N=160^3 in fp32 (tol
+    1e-4) and fp64 (tol 1e-5), with wall, cycles, peak memory, launches
+    and the SpMM's call widths (b=4 in the recurrence, k in the
+    verification): true residuals within 14 eps32 ||H||_G (fp32) and a
+    tenth of eps32 ||H||_G (fp64); the fp32 block against the fp64 block,
+    sorted, within eps32 ||H||_G; the fp64 block as phase 12's
+    multiplicity reference (the 5.2368/5.2370/5.2373 cluster's copies in
+    each solve; phase 12's fp32 values by sorted pairing, or, where the
+    single-vector solve holds other copies, by nearest value each way).
+18. The CLI in process on the default device: ``solve-regular -N 64 -k 8
+    --block-size 4`` against the N=64 golden by nearest value, each way.
+19. ``two_sided_lanczos_lookahead(n=250)`` and ``lookahead_eigs(k=5,
+    residual_tol=1e-5)`` at N=60 in fp64 on the CompositeV2 and its
+    transpose (phase 10's starts): closed blocks, interface launches >= 2
+    x 249, the pairs against the N=60 golden as phase 10 holds them.
+20. ``python -m lanczos_tpu_torch bench``'s measurement (N=160^3 fp32 SpMV
+    by graph replay): its GB/s within 50-100% of phase 3's copy rate.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -270,7 +291,7 @@ def phase_kernels(lt):
     gen = torch.Generator(device="cuda").manual_seed(0)
     # (kernel, b, offset): a block at offset 1 starts one element into its
     # buffer, so it is not 16-byte aligned and the SpMM takes element copies.
-    launches = [("stencil_spmv", None, 0)] + [("stencil_spmm", b, 0) for b in (1, 3, 5, 8, 20)] + [
+    launches = [("stencil_spmv", None, 0)] + [("stencil_spmm", b, 0) for b in (1, 3, 4, 5, 8, 20)] + [
         ("stencil_spmm", 8, 1), ("stencil_spmm", 20, 1)]
     for dtype in (torch.float32, torch.float64):
         for name, op in kernel_cases(lt, dtype):
@@ -379,6 +400,7 @@ def phase_timing(lt, floor_ms):
     # streams the basis through L2 between SpMVs.
     xs = itertools.cycle([torch.randn(m, generator=gen, device="cuda") for _ in range(8)])
     X = torch.randn((m, 20), generator=gen, device="cuda")
+    X4 = torch.randn((m, 4), generator=gen, device="cuda")
     csr = stencil_csr(op)
     copy_gbs = copy_rate()
     rows = {
@@ -392,7 +414,13 @@ def phase_timing(lt, floor_ms):
             (8 * 20 + 4) * m, 2 * 27 * 20 * m, copy_gbs, floor_ms,
             launches=5, eager_launches=10, plain_launches=5),
     }
-    del op, xs, X, csr
+    # The SpMM at b=4, the width of the block solver's recurrence: 36 B/pt.
+    b4 = {torch.float32: kernel_row(
+        "stencil_spmm b=4", lambda: sk.stencil_spmm(op, X4),
+        lambda: sk.stencil_spmm_reference(op, X4), lambda: torch.sparse.mm(csr, X4),
+        (4 * 4 * 2 + 4) * m, 2 * 27 * 4 * m, copy_gbs, floor_ms,
+        launches=20, eager_launches=20, plain_launches=5)}
+    del op, xs, X, X4, csr
     torch.cuda.empty_cache()
     # The SpMM in fp64, as the flagship's fp64 rerun calls it: 328 B/pt.
     op = lt.build_regular_hamiltonian(
@@ -400,14 +428,21 @@ def phase_timing(lt, floor_ms):
         device="cuda",
     )
     X = torch.randn((m, 20), generator=gen, device="cuda", dtype=torch.float64)
+    X4 = torch.randn((m, 4), generator=gen, device="cuda", dtype=torch.float64)
     csr = stencil_csr(op)
     kernel_row(
         "stencil_spmm b=20 fp64", lambda: sk.stencil_spmm(op, X),
         lambda: sk.stencil_spmm_reference(op, X), lambda: torch.sparse.mm(csr, X),
         (16 * 20 + 8) * m, 2 * 27 * 20 * m, copy_gbs, floor_ms,
         launches=5, eager_launches=10, plain_launches=2, peak_flops=PEAK_FP64_FLOPS)
-    del op, X, csr
+    b4[torch.float64] = kernel_row(
+        "stencil_spmm b=4 fp64", lambda: sk.stencil_spmm(op, X4),
+        lambda: sk.stencil_spmm_reference(op, X4), lambda: torch.sparse.mm(csr, X4),
+        (8 * 4 * 2 + 8) * m, 2 * 27 * 4 * m, copy_gbs, floor_ms,
+        launches=20, eager_launches=20, plain_launches=2, peak_flops=PEAK_FP64_FLOPS)
+    del op, X, X4, csr
     torch.cuda.empty_cache()
+    rows["stencil_spmm"]["block_b4"] = {str(dt)[6:]: row for dt, row in b4.items()}
     return rows, copy_gbs
 
 
@@ -876,9 +911,17 @@ def phase_two_sided(lt, ops, host):
           f"apply_fused_interface launches {launches} (A and A^T)")
     print(res.summary())
     check(launches >= 2 * 249, f"interface kernel launched {launches} times in 250 two-sided steps")
-    check(res.k >= 1, "two-sided: no pair with true residual < 1e-6")
+    hold_fp64_pairs("two-sided", res, golden)
+
+
+def hold_fp64_pairs(label, res, golden, residual_tol=1e-6):
+    """Hold an fp64 solve's pairs (true residual < residual_tol) to the
+    N=60 golden: the ground state within 3e-5 and every pair in the
+    golden's range within 3e-5 max(1, |lam|) of its nearest golden value."""
+    check(res.k >= 1, f"{label}: no pair with true residual < {residual_tol:g}")
     vals = res.eigenvalues.cpu().numpy()
-    # fp64, residual < 1e-6: eigenvalue error <= kappa * 1e-6 * max(|lam|, 1).
+    # fp64, residual < 1e-6: eigenvalue error <= kappa * 1e-6 * max(|lam|, 1)
+    # (the measured errors are ~1e-9 at residuals up to 1e-5).
     # Pairs above the golden's range are printed, not held: the golden
     # holds the five lowest eigenvalues only.
     ref = np.asarray(golden["eigenvalues"])
@@ -890,8 +933,8 @@ def phase_two_sided(lt, ops, host):
             worst = max(worst, d)
         print(f"    {lam:14.8f} resid {r:.3e} |diff| to nearest golden {d:.3e} "
               f"{'checked' if held else '- (above the golden range)'}")
-    check(abs(vals[0] - ref[0]) <= 3e-5, "two-sided: ground state off the golden value")
-    check(worst <= 3e-5 * max(1.0, float(np.abs(ref).max())), f"two-sided pair {worst:.3e} off")
+    check(abs(vals[0] - ref[0]) <= 3e-5, f"{label}: ground state off the golden value")
+    check(worst <= 3e-5 * max(1.0, float(np.abs(ref).max())), f"{label} pair {worst:.3e} off")
 
 
 # ---------------------------------------------------------------------------
@@ -1037,9 +1080,7 @@ def phase_restarted_flagship(lt, flagship):
     # fp32 solve: the values pair by nearest, each way, and the counts are
     # the Rayleigh-Ritz bound's.
     a, b = np.sort(vals), np.sort(ref_vals)
-    d_ab = np.abs(a[:, None] - b[None, :]).min(axis=1)
-    below = b[b <= a[-1] + tol]
-    d_ba = np.abs(below[:, None] - a[None, :]).min(axis=1)
+    d_ab, d_ba = nearest_each_way(a, b, tol)
     print(f"  fp32 value, theta' (fp64 Rayleigh-Ritz), nearest fp64 eigsh_restarted value "
           f"(tolerance eps32 ||H||_G = {tol:.3e} MeV):")
     for i in range(k):
@@ -1064,6 +1105,15 @@ def phase_restarted_flagship(lt, flagship):
             d = float(np.abs(vals - lam).min())
             print(f"    {lam:14.8f} resid {r:.3e}  |diff| {d:.3e} {'ok' if d <= tol else 'MISSING'}")
             check(d <= tol, f"eigsh_restarted holds no eigenvalue within {tol:.3e} of {lam:.8f}")
+    return dict(vals=vals, ref_vals=ref_vals, tol=tol)
+
+
+def nearest_each_way(a, b, tol):
+    """(distance of each a to the nearest b, distance of each b up to
+    max(a) + tol to the nearest a), for sorted value lists."""
+    d_ab = np.abs(a[:, None] - b[None, :]).min(axis=1)
+    below = b[b <= a[-1] + tol]
+    return d_ab, np.abs(below[:, None] - a[None, :]).min(axis=1)
 
 
 def to_host_sym(S):
@@ -1194,8 +1244,9 @@ def busy_share(fn):
 
 
 def northstar_busy_shares(info, extra):
-    """Device busy share of one restart cycle and of one refinement round,
-    each also timed without the profiler.  The cycle is the second of a
+    """Device busy share of one restart cycle and of one refinement round;
+    the cycle is also timed without the profiler (the round, ~9 s, only
+    under it).  The cycle is the second of a
     run: a two-cycle run less a one-cycle run from the same start (m - l
     steps from the locked block, the host eigh of the arrowhead and the
     Ritz rotation).  The round is ``max_rounds=1, tol=0``: a residual sweep,
@@ -1226,11 +1277,12 @@ def northstar_busy_shares(info, extra):
         refine_eigenpairs_dd_hosted(op, lam, X.copy(), tol=0.0, max_rounds=1, cg_steps=200,
                                     col_chunk=8, k_report=info["k"])
 
-    out["refine_round"] = timed(refine_round)
+    out["refine_round"] = (None, *busy_share(refine_round))
     for name, (wall, pwall, busy) in out.items():
-        print(f"  {name}: wall {wall:.3f} s; under the profiler {pwall:.3f} s with the device busy "
-              f"{busy:.3f} s ({busy / pwall:.1%} of the profiled wall, {busy / wall:.1%} of the "
-              f"unprofiled)")
+        unprofiled = (f"{busy / wall:.1%} of the unprofiled wall {wall:.3f} s" if wall
+                      else "not timed unprofiled")
+        print(f"  {name}: under the profiler {pwall:.3f} s with the device busy {busy:.3f} s "
+              f"({busy / pwall:.1%} of the profiled wall; {unprofiled})")
     return {name: dict(wall_s=w, profiled_wall_s=p, device_busy_s=b)
             for name, (w, p, b) in out.items()}
 
@@ -1345,26 +1397,37 @@ def northstar_kernel_times(op, launches):
         torch.cuda.empty_cache()
 
 
+#: Pairs of phase 16's solve: the golden's five cut the 2.514/2.524 cluster
+#: (five members: 2.51392 x3, 2.52358 x2), so its refinement stalled
+#: (scripts/compare_nonsym_refine.py: both packages alike); eight reach
+#: past it.
+NONSYM_REFINE_K = 8
+
+
 def phase_nonsym_refine(lt, lat):
     from lanczos_tpu_torch.solver.refine import refine_eigenpairs_dd_nonsym
 
-    print("== eigs_nonsym(compensated=True) at N=60 (fp32) and refine_eigenpairs_dd_nonsym vs "
-          "the lanczos_tpu fp64 golden")
+    print(f"== eigs_nonsym(compensated=True, k={NONSYM_REFINE_K}) at N=60 (fp32) and "
+          "refine_eigenpairs_dd_nonsym vs the lanczos_tpu fp64 golden")
     golden = load_golden(60)
     c = golden["config"]
     op, idx_map = lt.assemble_irregular_hamiltonian_composite2(
         lat, lt.deuteron_potential_3d, dtype=torch.float32, device="cuda")
     v0 = lattice_start(op, idx_map, lat.num_points, c["v0_seed"])
     t0 = time.perf_counter()
-    res = lt.eigs_nonsym(op, k=c["k"], max_basis=c["max_basis"], tol=c["tol"], v0=v0,
+    res = lt.eigs_nonsym(op, k=NONSYM_REFINE_K, max_basis=c["max_basis"], tol=c["tol"], v0=v0,
                          compensated=True)
     torch.cuda.synchronize()
     print(f"  eigs_nonsym {time.perf_counter() - t0:.2f} s")
     print(res.summary())
     vals, resid = res.eigenvalues.cpu().numpy(), res.residuals.cpu().numpy()
     norms = (golden["norm_inf"], golden["norm_1"])
-    check_against("N=60 fp32 compensated vs fp64 golden", vals, resid, golden, EPS32, norms,
-                  c["tol"])
+    # The golden holds the five lowest values: pairs above its range are
+    # printed, not held.
+    top = max(golden["eigenvalues"]) + 1e-3
+    inside = vals <= top
+    check_against("N=60 fp32 compensated vs fp64 golden", vals[inside], resid[inside], golden,
+                  EPS32, norms, c["tol"])
     t0 = time.perf_counter()
     lam, Xh, Xl, rel = refine_eigenpairs_dd_nonsym(op, vals, res.eigenvectors, tol=1e-9,
                                                    max_rounds=8, cg_steps=60)
@@ -1380,9 +1443,20 @@ def phase_nonsym_refine(lt, lat):
     s = lam[order]
     gaps = np.abs(np.diff(s)) > 1e-2 * np.maximum(np.abs(s[1:]), 1.0)
     cluster = np.concatenate([[0], np.cumsum(gaps)])
-    held = order[cluster != cluster[-1]]
+    incomplete = cluster == cluster[-1]
+    # The 2.514/2.524 cluster has five members (2.51392 x3, 2.52358 x2;
+    # scripts/compare_nonsym_refine.py).  A single-vector Krylov solve may
+    # hold fewer copies of it even at k=8: it is then incomplete, and its
+    # pairs are printed, not held.
+    in_cluster = (s > 2.5) & (s < 2.53)
+    copies = int(in_cluster.sum())
+    if copies < 5:
+        incomplete |= in_cluster
+    held = order[~incomplete]
+    print(f"  the 2.514/2.524 cluster: {copies} of its 5 copies in the fp32 solve "
+          f"({'held' if copies == 5 else 'incomplete: printed, not held'})")
     print(f"  complete clusters: pairs {held.tolist()} held at 1e-8 (max {rel[held].max():.3e}); "
-          f"pairs {order[cluster == cluster[-1]].tolist()} in the cluster of the highest pair")
+          f"pairs {order[incomplete].tolist()} in an incomplete cluster")
     check(order[0] in held, "the ground state lies in an incomplete cluster")
     check(rel[held].max() <= 1e-8, "a refined pair of a complete cluster is above 1e-8")
     check(float((Xh * (1 - op.live)[:, None]).abs().max()) == 0.0,
@@ -1390,7 +1464,215 @@ def phase_nonsym_refine(lt, lat):
     # The refined pairs are eigenpairs of the fp32-stored operator: held to
     # the golden (fp64 coefficients) within its storage-rounding tolerance.
     rel_scaled = rel * np.abs(lam) / np.maximum(np.abs(lam), 1.0)
-    check_against("refined N=60 vs fp64 golden", lam, rel_scaled, golden, EPS32, norms, c["tol"])
+    o = order[s <= top]
+    check_against("refined N=60 vs fp64 golden", lam[o], rel_scaled[o], golden, EPS32, norms,
+                  c["tol"])
+
+
+# ---------------------------------------------------------------------------
+# The block solver, look-ahead two-sided Lanczos, the CLI and the benchmark
+
+
+def cluster_copies(vals):
+    """{value rounded to 4 decimals: copies} of the 5.2368/5.2370/5.2373
+    cluster among ``vals``."""
+    v = np.round(np.sort(np.asarray(vals)), 4)
+    keys, counts = np.unique(v[(v > 5.2360) & (v < 5.2380)], return_counts=True)
+    return {f"{key:.4f}": int(n) for key, n in zip(keys, counts)}
+
+
+def phase_block_flagship(lt, restarted):
+    """eigsh_block_restarted(k=20, block_size=4) at N=160^3 in fp32 and fp64;
+    the fp64 block is phase 12's multiplicity reference.  Returns each
+    dtype's launches."""
+    from lanczos_tpu_torch.ops import operators
+
+    N, k, b = 160, 20, 4
+    print(f"== eigsh_block_restarted at N=160^3 (27-point, k={k}, block_size={b}): fp32 (tol "
+          "1e-4), fp64 (tol 1e-5); the fp64 block as phase 12's multiplicity reference")
+    # Record the width of every SpMM call: the recurrence runs at b, the
+    # Rayleigh-Ritz verification and the acceptance at k.
+    widths = {}
+    spmm = operators.stencil_spmm
+
+    def spy(op, X):
+        widths[X.shape[1]] = widths.get(X.shape[1], 0) + 1
+        return spmm(op, X)
+
+    runs = {}
+    operators.stencil_spmm = spy
+    try:
+        # fp32 stops at its floor, far above either tol, so its tol only
+        # sets when the verification starts; fp64's puts every true residual
+        # below 1e-5 |lambda|, under its gate.
+        for dtype, solve_tol in ((torch.float32, 1e-4), (torch.float64, 1e-5)):
+            name = str(dtype)[6:]
+            H = lt.build_regular_hamiltonian(N, 25.0, lt.deuteron_potential_3d, stencil="27",
+                                             dtype=dtype, device="cuda")
+            tol = fp32_tolerance(H)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            widths.clear()
+            t0 = time.perf_counter()
+            res = lt.eigsh_block_restarted(H, k=k, block_size=b, tol=solve_tol, max_cycles=400)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            peak = torch.cuda.max_memory_allocated()
+            print(f"  {name}: wall {wall:.3f} s, {res.cycles} cycles, peak device memory "
+                  f"{peak / 2**30:.2f} GiB, launches {json.dumps(launches)}, SpMM calls by "
+                  f"width {dict(sorted(widths.items()))}")
+            print(res.summary(print_nr=k))
+            for what, t in (("eigenvalues", res.eigenvalues), ("eigenvectors", res.eigenvectors),
+                            ("residuals", res.residuals), ("inner_prod", res.inner_prod)):
+                check(bool(torch.isfinite(t).all()), f"block {name}: non-finite {what}")
+            check(tuple(res.eigenvectors.shape) == (N**3, k), "block result shapes")
+            check(launches["stencil_spmm"][name] > 0 and widths.get(b, 0) > 0,
+                  f"block {name}: the SpMM was not launched at b={b}")
+            check(set(widths) <= {b, k}, f"block {name}: SpMM widths {sorted(widths)}")
+            resid = res.residuals.double().cpu().numpy()
+            gate = 14 * tol if dtype == torch.float32 else tol / 10
+            print(f"  {name} true residuals: max {resid.max():.3e} MeV = "
+                  f"{resid.max() / tol:.3f} eps32 ||H||_G (gate "
+                  f"{'14' if dtype == torch.float32 else '0.1'})")
+            check(resid.max() <= gate, f"block {name}: a true residual {resid.max():.3e} > "
+                                       f"{gate:.3e} MeV")
+            runs[dtype] = dict(vals=np.sort(res.eigenvalues.double().cpu().numpy()), wall=wall,
+                               cycles=res.cycles, peak=peak, launches=launches, tol=tol)
+            del H, res
+            torch.cuda.empty_cache()
+    finally:
+        operators.stencil_spmm = spmm
+
+    tol = runs[torch.float32]["tol"]
+    ref = runs[torch.float64]["vals"]
+    print(f"  copies of the 5.2368/5.2370/5.2373 cluster (tolerance eps32 ||H||_G = {tol:.3e} MeV):")
+    for label, v in (("phase 12 fp32 eigsh_restarted", restarted["vals"]),
+                     ("phase 12 fp64 eigsh_restarted", restarted["ref_vals"]),
+                     ("block fp32", runs[torch.float32]["vals"]), ("block fp64", ref)):
+        print(f"    {label:32s} {cluster_copies(v)}")
+    d = np.abs(runs[torch.float32]["vals"] - ref)
+    print(f"  block fp32 vs block fp64, sorted: max |diff| {d.max():.3e} MeV")
+    check(d.max() <= tol, f"the fp32 block is {d.max():.3e} off the fp64 block (sorted)")
+    a = np.sort(restarted["vals"])
+    d = np.abs(a - ref)
+    print("  phase 12 fp32 value, fp64 block value (sorted pairing):")
+    for i in range(k):
+        print(f"    {i:2d} {a[i]:14.8f} {ref[i]:14.8f} |diff| {d[i]:.3e} "
+              f"{'ok' if d[i] <= tol else 'MISMATCH'}")
+    if d.max() <= tol:
+        print(f"  sorted pairing holds: max |diff| {d.max():.3e} MeV")
+    else:
+        # A single-vector solve may drop a multiplet copy: that is a finding
+        # about it, and its values are then held by nearest value, each way.
+        d_ab, d_ba = nearest_each_way(a, ref, tol)
+        print(f"  sorted pairing FAILS (max |diff| {d.max():.3e} MeV): the single-vector fp32 "
+              f"solve holds other copies; nearest each way: {d_ab.max():.3e} / {d_ba.max():.3e}")
+        check(max(d_ab.max(), d_ba.max()) <= tol,
+              "phase 12's fp32 values are off the fp64 block by nearest value")
+    return {str(dt)[6:]: r["launches"] for dt, r in runs.items()}
+
+
+def phase_cli_block(lt):
+    """``solve-regular -N 64 -k 8 --block-size 4`` in process on the default
+    device, against the N=64 golden by nearest value, each way."""
+    from lanczos_tpu_torch.cli import main as cli_main
+
+    print("== CLI: solve-regular -N 64 -k 8 --block-size 4 (default device, fp32) vs the N=64 "
+          "golden")
+    with open(os.path.join(HERE, "lanczos_tpu_torch", "data", "golden_eigsh_n64.json")) as f:
+        golden = json.load(f)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = cli_main(["solve-regular", "-N", "64", "-k", "8", "--block-size", "4"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    print(f"  wall {wall:.3f} s, {res.cycles} cycles, launches {json.dumps(launches)}")
+    check(res.eigenvectors.device.type == "cuda", "the CLI did not solve on the card")
+    check(launches["stencil_spmm"]["float32"] > 0, "the CLI's block solve ran no SpMM launch")
+    tol = fp32_tolerance(lt.build_regular_hamiltonian(
+        64, 25.0, lt.deuteron_potential_3d, stencil="27", dtype=torch.float32, device="cuda"))
+    vals = np.sort(res.eigenvalues.double().cpu().numpy())
+    resid = res.residuals.double().cpu().numpy()
+    # The golden is a single-vector eigsh(n=150): past its two lowest pairs
+    # its Ritz values mix neighbouring clusters (residuals 0.024-7.6 MeV,
+    # though the acceptance statistic passes some).  Only its values whose
+    # own residual is within the tolerance are eigenvalues to that much;
+    # they and the block values in their range pair by nearest value, each
+    # way.  The block values beyond are held by their true residuals.
+    g_res = np.asarray(golden["residuals"])
+    g = np.sort(np.asarray(golden["eigenvalues"])[g_res <= tol])
+    d_ab, d_ba = nearest_each_way(g, vals, tol)
+    print(f"  block values {np.round(vals, 6).tolist()}, true residuals max {resid.max():.3e} MeV "
+          f"(gate 14 eps32 ||H||_G = {14 * tol:.3e})")
+    print(f"  golden values with residual <= {tol:.3e}: {np.round(g, 6).tolist()}")
+    print(f"  nearest each way: {d_ab.max():.3e} / {d_ba.max():.3e} MeV (tolerance {tol:.3e})")
+    check(len(g) >= 1 and resid.max() <= 14 * tol, "CLI block residuals above the fp32 gate")
+    check(max(d_ab.max(), d_ba.max()) <= tol, "CLI block values are off the N=64 golden")
+    return launches
+
+
+def phase_lookahead(lt, lat):
+    """two_sided_lanczos_lookahead(n=250) and lookahead_eigs(k=5) at N=60 in
+    fp64 on the CompositeV2 and its transpose, against the N=60 golden."""
+    # The explicit oblique pencil (W A V^T, W V^T) floors the ground state's
+    # true residual near 1e-6 at n=250, far above the plain two-sided
+    # solve's (PERF.md §6), so 1e-6 would accept it or not by rounding:
+    # the pairs are accepted at 1e-5.
+    print("== two_sided_lanczos_lookahead at N=60, fp64, n=250, on the CompositeV2 and its "
+          "transpose; lookahead_eigs(k=5, residual_tol=1e-5)")
+    golden = load_golden(60)
+    op, idx_map = lt.assemble_irregular_hamiltonian_composite2(
+        lat, lt.deuteron_potential_3d, dtype=torch.float64, build_transpose=True, device="cuda")
+    p = lat.num_points
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    fac = lt.two_sided_lanczos_lookahead(
+        op, 250, v0=lattice_start(op, idx_map, p, 99), w0=lattice_start(op, idx_map, p, 100),
+        op_transpose=op.transpose())
+    res = lt.lookahead_eigs(fac, k=5, op=op, residual_tol=1e-5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    sizes = np.bincount([e - a for a, e in fac.blocks])
+    print(f"  wall {wall:.3f} s, n {fac.n}, {len(fac.blocks)} closed blocks (by size "
+          f"{ {i: int(c) for i, c in enumerate(sizes) if c} }), max_block_used "
+          f"{fac.max_block_used}, incurable {fac.incurable}; launches {json.dumps(launches)}")
+    print(res.summary())
+    n_ifc = launches["apply_fused_interface"]["float64"]
+    check(n_ifc >= 2 * 249, f"interface kernel launched {n_ifc} times in 250 look-ahead steps")
+    check(launches["stencil_spmv"]["float64"] > 0, "look-ahead ran no fp64 SpMV launch")
+    hold_fp64_pairs("look-ahead", res, golden, residual_tol=1e-5)
+    return launches
+
+
+def phase_bench(copy_gbs):
+    """``python -m lanczos_tpu_torch bench``'s measurement, its GB/s held
+    between 50% and 100% of the copy rate phase 3 measured."""
+    import contextlib
+    import io
+
+    from lanczos_tpu_torch.utils.bench_impl import main as bench_main
+
+    print("== bench: the N=160^3 fp32 SpMV by graph replay (utils/bench_impl.py)")
+    reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        line = bench_main(device="cuda")
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    share = line["value"] / copy_gbs
+    print(f"  bench line: {out.getvalue().strip()}")
+    print(f"  wall {wall:.2f} s, launches {json.dumps(launches)}; {line['value']} GB/s = "
+          f"{share:.1%} of the copy rate {copy_gbs:.1f} GB/s (held in [50%, 100%])")
+    check(line["detail"]["backend"] == "cuda" and launches["stencil_spmv"]["float32"] > 0,
+          "the bench did not run the SpMV kernel")
+    check(0.5 <= share <= 1.0, f"bench {line['value']} GB/s is {share:.1%} of the copy rate")
+    return launches
 
 
 def main():
@@ -1431,6 +1713,10 @@ def main():
         14: phase_northstar_small,
         15: lambda: phase_northstar(NORTHSTAR_N_FINE),
         16: lambda: phase_nonsym_refine(lt, n60),
+        17: lambda: phase_block_flagship(lt, results[12]),
+        18: lambda: phase_cli_block(lt),
+        19: lambda: phase_lookahead(lt, n60),
+        20: lambda: phase_bench(copy_gbs),
     }
     results = {}
     for n, phase in phases.items():
@@ -1459,7 +1745,11 @@ def main():
     for k in kernels:
         t = times[k["name"]]
         k.update(max_abs_err=max_abs[k["name"]], **t,
-                 northstar_launches_by_dtype=northstar["launches"][k["name"]])
+                 northstar_launches_by_dtype=northstar["launches"][k["name"]],
+                 block_launches={dt: ls[k["name"]] for dt, ls in results[17].items()},
+                 cli_block_launches=results[18][k["name"]],
+                 lookahead_launches=results[19][k["name"]],
+                 bench_launches=results[20][k["name"]])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

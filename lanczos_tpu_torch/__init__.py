@@ -12,6 +12,9 @@ these paths:
 * ``eigsh_restarted``: thick-restart Lanczos in a bounded basis, with
   cycle checkpoints (``utils/checkpoint.py``) and the ``compensated``
   reductions (``ops/compensated.py``);
+* block Lanczos (``eigsh(block_size > 1)``, ``eigsh_block_restarted``):
+  (M, b) blocks through the stencil SpMM kernel, resolving degenerate
+  multiplets up to b;
 * the double-word refinement (``solver/refine.py`` on ``ops/dd.py``), which
   takes float32 pairs to 1e-8 residuals (the north-star path,
   ``scripts/northstar_torch.py``);
@@ -19,7 +22,12 @@ these paths:
   Laplacian rows -> ``assemble_irregular_hamiltonian_composite2`` (the
   CompositeV2 operator: per-level stencil kernels plus the CUDA fused
   interface kernel) or the padded-ELL assembly -> ``eigs_nonsym``
-  (Krylov–Schur) or, in float64, ``two_sided_lanczos``/``two_sided_eigs``.
+  (Krylov–Schur) or, in float64, ``two_sided_lanczos``/``two_sided_eigs``
+  and the look-ahead form that cures serious breakdowns
+  (``two_sided_lanczos_lookahead``/``lookahead_eigs``);
+* operator I/O and the Mathematica export (``utils/io.py``), and the
+  flagship SpMV benchmark (``utils/bench_impl.py``), both also CLI
+  subcommands (``export-matrix``, ``bench``).
 
 Constructors and builders allocate on ``"cuda"`` unless given ``device=``.
 It imports ``torch`` and never ``jax``.
@@ -44,6 +52,7 @@ from .ops.operators import (  # noqa: E402
 from .ops.assemble import ell_from_coo, ell_from_scipy  # noqa: E402
 from .solver.api import eigsh  # noqa: E402
 from .solver.restart import eigsh_restarted  # noqa: E402
+from .solver.block import eigsh_block_restarted  # noqa: E402
 from .solver.lanczos import LanczosFactorization, lanczos  # noqa: E402
 from .solver.results import EigResult, match_eigs  # noqa: E402
 from .solver.tridiag import (  # noqa: E402
@@ -66,6 +75,7 @@ from .models.irr_hamiltonian import (  # noqa: E402
 from .ops.composite2 import CompositeV2  # noqa: E402
 from .solver.arnoldi import arnoldi, eigs_nonsym  # noqa: E402
 from .solver.two_sided import two_sided_eigs, two_sided_lanczos  # noqa: E402
+from .solver.look_ahead import lookahead_eigs, two_sided_lanczos_lookahead  # noqa: E402
 from .models.potentials import (  # noqa: E402
     DEUTERON_REDUCED_REST_ENERGY_MEV,
     HBAR_C_MEV_FM,

@@ -2,13 +2,17 @@
 
   python -m lanczos_tpu_torch solve-regular   -N 64 -L 25 -n 150 -k 8
   python -m lanczos_tpu_torch solve-irregular -N 60 -L 25 --box-depth 3 -n 250 -k 5
+  python -m lanczos_tpu_torch export-matrix   -d 3 -L 25 -N 30 -p Deuteron
+  python -m lanczos_tpu_torch bench
 
 ``solve-regular`` builds the regular-grid 3D deuteron Hamiltonian and solves
 it on ``--device`` (``cuda`` by default; there the stencil SpMV/SpMM run as
-CUDA kernels) with ``eigsh``, or with the memory-bounded thick-restart
-``eigsh_restarted`` under ``--restart`` (``--max-basis``, ``--tol``).
-``--block-size > 1`` names the block solver, not yet ported, and exits
-with an error.
+CUDA kernels) with ``eigsh``; with the memory-bounded thick-restart
+``eigsh_restarted`` under ``--restart`` (``--max-basis``, ``--tol``); else,
+with ``--block-size > 1``, with the restarted block solver
+``eigsh_block_restarted`` (``--tol``), which resolves degenerate multiplets
+up to the block size.  ``--restart`` takes precedence, as in the JAX
+package.
 
 ``solve-irregular`` builds the multi-resolution lattice and solves the raw
 non-symmetric Hamiltonian with Krylov–Schur (``eigs_nonsym``, default) or
@@ -21,6 +25,11 @@ drawn in lattice order from ``--seed`` (the same on both devices) and
 scattered into the CompositeV2 layout, dead slots zero.  ``--compensated``
 runs either solver's scalar reductions through the error-free-transform
 dot (``ops/compensated.py``).
+
+``export-matrix`` writes the irregular H (the reference's MatrixWrite.py
+lattice: spacing 2, 1 in the centre box) in Mathematica syntax, assembled
+in float64 on ``--device``.  ``bench`` prints the flagship SpMV
+benchmark's JSON line (``utils/bench_impl.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +40,13 @@ import time
 import torch
 
 
+def _add_device(p):
+    p.add_argument(
+        "--device", default="cuda", choices=["cuda", "cpu"],
+        help="where to run; cuda fails when no card is visible",
+    )
+
+
 def _add_common(p):
     p.add_argument("-L", type=float, default=25.0, help="box length [fm]")
     p.add_argument("-n", type=int, default=150, help="Krylov iterations")
@@ -39,10 +55,7 @@ def _add_common(p):
     p.add_argument(
         "--dtype", default="float32", choices=["float32", "float64"]
     )
-    p.add_argument(
-        "--device", default="cuda", choices=["cuda", "cpu"],
-        help="where to solve; cuda fails when no card is visible",
-    )
+    _add_device(p)
     p.add_argument("--out", default=None, help="prefix for .npy eigenpair dump")
 
 
@@ -51,7 +64,7 @@ def _require_device(device):
         raise SystemExit(
             "--device cuda: no CUDA device is visible "
             "(torch.cuda.is_available() is False); pass --device cpu to "
-            "solve on the CPU"
+            "run on the CPU"
         )
 
 
@@ -67,11 +80,6 @@ def _where(device):
 def cmd_solve_regular(args):
     import lanczos_tpu_torch as lt
 
-    if args.block_size > 1:
-        raise SystemExit(
-            "--block-size > 1 (eigsh_block_restarted) is not yet ported "
-            "(ROADMAP Queue 1 #11)"
-        )
     _require_device(args.device)
 
     t0 = time.perf_counter()
@@ -82,6 +90,10 @@ def cmd_solve_regular(args):
     if args.restart:
         res = lt.eigsh_restarted(
             h, k=args.k, max_basis=args.max_basis, tol=args.tol, seed=args.seed,
+        )
+    elif args.block_size > 1:
+        res = lt.eigsh_block_restarted(
+            h, k=args.k, block_size=args.block_size, tol=args.tol, seed=args.seed,
         )
     else:
         res = lt.eigsh(
@@ -182,6 +194,35 @@ def cmd_solve_irregular(args):
     return res
 
 
+def cmd_export_matrix(args):
+    # MatrixWrite.py parity: -d -L -N -p on the overwrite_spacing lattice.
+    # Its doubled T_factor (MatrixWrite.py:30) is the Laplacian
+    # normalization the weights already carry, so it is not doubled here.
+    import lanczos_tpu_torch as lt
+    from lanczos_tpu_torch.utils.io import export_mathematica
+
+    if args.p != "Deuteron":
+        raise SystemExit(f"unsupported potential {args.p!r}")
+    if args.d != 3:
+        raise SystemExit("only 3 dimensions supported")
+    _require_device(args.device)
+    lat = lt.build_lattice(args.N, args.L, 3, overwrite_spacing=True)
+    h = lt.assemble_irregular_hamiltonian(
+        lat, lt.deuteron_potential_3d, dtype=torch.float64, device=args.device
+    )
+    out = args.out or f"matrix_d={args.d}_N={args.N}_L={args.L:g}_p={args.p}.dat"
+    export_mathematica(out, h, ndim=args.d, length=args.L, potential_name=args.p)
+    print(f"# wrote {out} ({lat.num_points} points)")
+    return out
+
+
+def cmd_bench(args):
+    from lanczos_tpu_torch.utils.bench_impl import main as bench_main
+
+    _require_device(args.device)
+    return bench_main(device=args.device)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="lanczos_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -196,7 +237,7 @@ def main(argv=None):
     p.add_argument("--max-basis", type=int, default=0,
                    help="restart basis bound (default 2k+30)")
     p.add_argument("--block-size", type=int, default=1,
-                   help=">1: restarted BLOCK solver (not yet ported)")
+                   help=">1: restarted BLOCK solver (degenerate multiplets)")
     p.add_argument("--tol", type=float, default=1e-6,
                    help="restart/block convergence tolerance")
     _add_common(p)
@@ -221,6 +262,21 @@ def main(argv=None):
     p.add_argument("--verbose", action="store_true")
     _add_common(p)
     p.set_defaults(fn=cmd_solve_irregular)
+
+    p = sub.add_parser("export-matrix",
+                       help="export irregular H as Mathematica .dat "
+                            "(MatrixWrite parity)")
+    p.add_argument("-d", type=int, default=3)
+    p.add_argument("-L", type=float, default=25.0)
+    p.add_argument("-N", type=int, default=30)
+    p.add_argument("-p", type=str, default="Deuteron")
+    p.add_argument("--out", default=None)
+    _add_device(p)
+    p.set_defaults(fn=cmd_export_matrix)
+
+    p = sub.add_parser("bench", help="flagship SpMV benchmark (JSON line)")
+    _add_device(p)
+    p.set_defaults(fn=cmd_bench)
 
     args = parser.parse_args(argv)
     return args.fn(args)

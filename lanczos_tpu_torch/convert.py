@@ -2,7 +2,8 @@
 
 :func:`from_jax` turns a ``lanczos_tpu`` StencilOperator, EllOperator,
 DenseOperator, CompositeV2 (with its transpose),
-InterfacePlan, IrregularLattice or LanczosFactorization into the port's
+InterfacePlan, IrregularLattice, LanczosFactorization,
+BlockLanczosFactorization or LookAheadFactorization into the port's
 counterpart, so both packages can compute with identical operators and
 states.  It reads attributes through ``np.asarray`` and never imports
 ``jax`` itself.
@@ -20,7 +21,9 @@ from .models.lattice import IrregularLattice
 from .ops.composite2 import CompositeV2
 from .ops.interface_kernel import InterfacePlan
 from .ops.operators import DenseOperator, EllOperator, StencilOperator
+from .solver.block import BlockLanczosFactorization
 from .solver.lanczos import LanczosFactorization
+from .solver.look_ahead import LookAheadFactorization
 
 __all__ = ["from_jax"]
 
@@ -83,5 +86,17 @@ def from_jax(obj, *, device=DEFAULT_DEVICE, dtype=None):
         return LanczosFactorization(
             alpha=t(obj.alpha), beta=t(obj.beta), V=t(obj.V), resid=t(obj.resid),
             breakdown_iter=t(obj.breakdown_iter, torch.int64),
+        )
+    if kind == "BlockLanczosFactorization":
+        return BlockLanczosFactorization(
+            a_blocks=t(obj.a_blocks), b_blocks=t(obj.b_blocks), Q=t(obj.Q),
+            resid_block=t(obj.resid_block),
+        )
+    if kind == "LookAheadFactorization":
+        # The port keeps the bases in float64 whatever ``dtype`` says.
+        return LookAheadFactorization(
+            V=t(obj.V, torch.float64), W=t(obj.W, torch.float64), AV=t(obj.AV, torch.float64),
+            blocks=tuple(tuple(int(i) for i in blk) for blk in obj.blocks),
+            incurable=bool(obj.incurable), max_block_used=int(obj.max_block_used),
         )
     raise TypeError(f"no port counterpart for lanczos_tpu {kind}")

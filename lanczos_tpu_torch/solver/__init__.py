@@ -1,5 +1,11 @@
 from .api import eigsh
 from .restart import eigsh_restarted
+from .block import (
+    BlockLanczosFactorization,
+    block_lanczos,
+    block_ritz,
+    eigsh_block_restarted,
+)
 from .refine import (
     refine_eigenpairs_dd,
     refine_eigenpairs_dd_hosted,
@@ -20,4 +26,9 @@ from .two_sided import (
     nonsymmetric_tridiag_eig,
     two_sided_eigs,
     two_sided_lanczos,
+)
+from .look_ahead import (
+    LookAheadFactorization,
+    lookahead_eigs,
+    two_sided_lanczos_lookahead,
 )

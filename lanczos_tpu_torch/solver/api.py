@@ -57,18 +57,18 @@ def eigsh(
     be a LinearOperator (solved on its device), a dense array or tensor, or
     a scipy sparse matrix.
 
+    ``block_size > 1`` runs block Lanczos (``solver/block.py``): each step
+    advances an (M, b) block through ``op.matmat``, resolving degenerate
+    multiplets up to b; ``n`` then counts Krylov vectors, rounded up to
+    whole blocks so that at least k exist.  The reorth and ghost options
+    apply to the single-vector path only; ``v0`` and ``compensated`` are
+    rejected with ``block_size > 1``.
+
     ``ghost_filter`` defaults to True when reorthogonalization is not "full"
     (without full reorth, spurious copies of converged eigenvalues appear and
     are filtered by the Cullum–Willoughby test).  ``compensated=True`` runs
     the recurrence's reductions through the error-free-transform dot.
     """
-    if block_size > 1:
-        if compensated:
-            raise ValueError("compensated is not supported with block_size > 1")
-        raise NotImplementedError(
-            "block_size > 1 (block Lanczos, solver/block.py) is not yet "
-            "ported (ROADMAP Queue 1 #11)"
-        )
     op = as_operator(A)
     m = op.shape[0]
     if n is None:
@@ -77,6 +77,10 @@ def eigsh(
         raise ValueError(f"k={k} cannot exceed Krylov depth n={n}")
     if ghost_filter is None:
         ghost_filter = reorth != "full"
+
+    if block_size > 1:
+        return _eigsh_block(op, k, n, which, seed, v0, compute_acceptance, dtype,
+                            compensated, block_size)
 
     fac = lanczos(
         op, n, seed=seed, v0=v0, reorth=reorth, reorth_passes=reorth_passes,
@@ -125,5 +129,45 @@ def eigsh(
         eigenvalues=eigenvalues,
         eigenvectors=eigenvectors,
         residuals=residuals,
+        inner_prod=inner,
+    )
+
+
+def _eigsh_block(op, k, n, which, seed, v0, compute_acceptance, dtype, compensated,
+                 block_size):
+    """``eigsh``'s block branch: unrestarted block Lanczos, then Ritz."""
+    from .block import block_lanczos, block_ritz
+
+    if v0 is not None:
+        raise ValueError("v0 is not supported with block_size > 1")
+    if compensated:
+        raise ValueError("compensated is not supported with block_size > 1")
+    m = op.shape[0]
+    if m < 2 * block_size:
+        # The least basis, two blocks, would exceed the operator dimension.
+        raise ValueError(
+            f"operator dimension {m} is too small for block_size={block_size} "
+            f"(needs m >= {2 * block_size})"
+        )
+    # The Krylov dimension must cover k: whole blocks, rounded up, capped at
+    # the operator dimension.
+    num_blocks = min(max(-(-max(n, k) // block_size), 2), m // block_size)
+    if num_blocks * block_size < k:
+        raise ValueError(
+            f"block Krylov dimension {num_blocks * block_size} "
+            f"(block_size={block_size}, m={m}) cannot produce k={k} pairs"
+        )
+    theta, X, resid = block_ritz(block_lanczos(op, num_blocks, block_size, seed=seed,
+                                               dtype=dtype))
+    sel = torch.as_tensor(_select(theta, which, k).copy(), device=theta.device)
+    eigenvalues, eigenvectors = theta[sel], X[:, sel]
+    if compute_acceptance:
+        inner = acceptance_inner_prod(op, eigenvectors)
+    else:
+        inner = torch.full_like(eigenvalues, float("nan"))
+    return EigResult(
+        eigenvalues=eigenvalues,
+        eigenvectors=eigenvectors,
+        residuals=resid[sel],
         inner_prod=inner,
     )

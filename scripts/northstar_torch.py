@@ -97,6 +97,13 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
+def default_max_basis(kk):
+    """The restart basis when ``--max-basis`` is 0: 2 kk + 30, the rule of
+    ``eigsh_restarted`` itself (250 for k = 100 and the 10 buffer pairs, a
+    13 GB float32 basis at n_fine=432 on an 80 GB card)."""
+    return 2 * kk + 30
+
+
 def run(n_fine=432, box_depth=3, k=100, k_buffer=10, tol=1e-8, fp32_tol=3e-7, max_basis=0,
         n_locked=0, max_cycles=400, refine_rounds=4, col_chunk=8, min_grid_rows=4096,
         cg_steps=200, checkpoint="", checkpoint_every=10, save_vectors="", device="cuda",
@@ -144,7 +151,7 @@ def run(n_fine=432, box_depth=3, k=100, k_buffer=10, tol=1e-8, fp32_tol=3e-7, ma
     log(f"composite v2 built in {info['t_build_composite_s']:.2f} s (M={comp.shape[0]}, "
         f"{len(comp.grid_meta)} classes)")
 
-    max_basis = max_basis or min(2 * kk + 30, 144 if p > 4e6 else 2 * kk + 30)
+    max_basis = max_basis or default_max_basis(kk)
     n_locked = n_locked or min(kk + 4, max_basis - 2)
     info["max_basis"], info["n_locked"] = max_basis, n_locked
     if save_vectors and os.path.exists(save_vectors):

@@ -31,10 +31,39 @@ def test_solve_regular_matches_jax(capsys, tmp_path):
     assert vals.shape == (3,) and vecs.shape == (512, 3)
 
 
-@pytest.mark.parametrize("extra,queue_item", [(["--block-size", "2"], "#11")])
-def test_unported_solvers_exit_cleanly(extra, queue_item):
-    with pytest.raises(SystemExit, match=f"not yet ported .*Queue 1 {queue_item}"):
-        main(ARGS + extra)
+def test_solve_regular_block_matches_jax(capsys):
+    """--block-size 2 runs eigsh_block_restarted, as lanczos_tpu's CLI
+    routes it: the converged float64 eigenvalues match the JAX package's
+    (each from its own seeded start block) within 1e-8."""
+    res = main(["solve-regular", "-N", "12", "-k", "3", "--block-size", "2", "--tol", "1e-8",
+                "--dtype", "float64", "--device", "cpu"])
+    text = capsys.readouterr().out
+    assert "# regular 12^3 grid" in text and "on cpu" in text and text.count(" ok") == 3
+    H = lt.build_regular_hamiltonian(12, 25.0, lt.deuteron_potential_3d, stencil="27",
+                                     dtype="float64")
+    ref = lt.eigsh_block_restarted(H, k=3, block_size=2, tol=1e-8, dtype=np.float64)
+    np.testing.assert_allclose(res.eigenvalues.numpy(), np.asarray(ref.eigenvalues), atol=1e-8,
+                               rtol=0)
+    assert res.cycles >= 1
+
+
+def test_restart_takes_precedence_over_block_size(monkeypatch, capsys):
+    """``--restart --block-size 2`` runs eigsh_restarted in both CLIs."""
+    import lanczos_tpu_torch as pt
+    from lanczos_tpu.cli import main as jax_main
+
+    called = []
+    for pkg in (lt, pt):
+        for name in ("eigsh_restarted", "eigsh_block_restarted"):
+            fn = getattr(pkg, name)
+            monkeypatch.setattr(pkg, name, lambda *a, _fn=fn, _tag=(pkg.__name__, name), **kw:
+                                called.append(_tag) or _fn(*a, **kw))
+    argv = ["solve-regular", "-N", "6", "-k", "2", "--restart", "--block-size", "2", "--tol",
+            "1e-8", "--dtype", "float64"]
+    main(argv + ["--device", "cpu"])
+    jax_main(argv + ["--platform", "cpu"])
+    capsys.readouterr()
+    assert called == [("lanczos_tpu_torch", "eigsh_restarted"), ("lanczos_tpu", "eigsh_restarted")]
 
 
 def test_solve_regular_restart_matches_jax(capsys):

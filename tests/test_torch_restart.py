@@ -156,3 +156,22 @@ def test_ritz_update_chunked_rotation(mdim, col_chunk):
     assert (model[l:] == 0).all()
     got = _ritz_update(torch.from_numpy(V.copy()), torch.from_numpy(Y), l, col_chunk=col_chunk)
     np.testing.assert_allclose(got.numpy(), model, atol=1e-13)
+
+
+def test_northstar_default_basis_is_the_restart_rule():
+    """scripts/northstar_torch.py's default basis is 2 kk + 30 at every
+    size: 250 for k = 100 and the default 10 buffer pairs (no 16 GB TPU
+    cap above 4M points)."""
+    import inspect
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                    "scripts"))
+    import northstar_torch
+
+    defaults = inspect.signature(northstar_torch.run).parameters
+    kk = defaults["k"].default + defaults["k_buffer"].default
+    assert (kk, defaults["max_basis"].default) == (110, 0)
+    assert northstar_torch.default_max_basis(kk) == 250
+    assert northstar_torch.default_max_basis(20) == 70  # eigsh_restarted's own default

@@ -70,8 +70,8 @@ def test_lanczos_entry_point_checks():
         pt.lanczos(P, 65)
     with pytest.raises(ValueError):
         pt.lanczos(P, 10, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1 #11"):
-        pt.eigsh(P, k=2, n=10, block_size=2)
+    with pytest.raises(ValueError, match="compensated is not supported"):
+        pt.eigsh(P, k=2, n=10, block_size=2, compensated=True)
     # The default start vector comes from a seeded torch.Generator.
     f1, f2 = pt.lanczos(P, 10, seed=5), pt.lanczos(P, 10, seed=5)
     np.testing.assert_array_equal(f1.alpha.numpy(), f2.alpha.numpy())
@@ -156,6 +156,8 @@ def test_port_never_imports_jax():
         "import lanczos_tpu_torch.solver.arnoldi, lanczos_tpu_torch.solver.two_sided\n"
         "import lanczos_tpu_torch.models.lattice, lanczos_tpu_torch.native\n"
         "import lanczos_tpu_torch.models.irr_hamiltonian, lanczos_tpu_torch.utils.io\n"
+        "import lanczos_tpu_torch.solver.block, lanczos_tpu_torch.solver.look_ahead\n"
+        "import lanczos_tpu_torch.utils.bench_impl\n"
         "assert not [m for m in sys.modules if m.startswith('lanczos_tpu.') or m == 'lanczos_tpu']\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "print('ok')\n"
