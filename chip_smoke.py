@@ -109,7 +109,35 @@ The block solver, look-ahead, the CLI and the benchmark:
 20. ``python -m lanczos_tpu_torch bench``'s measurement (N=160^3 fp32 SpMV
     by graph replay): its GB/s within 50-100% of phase 3's copy rate.
 
-The line before the last is a JSON object of the kernels; the last line is
+Row sharding (``lanczos_tpu_torch/parallel``), over a one-rank NCCL process
+group the script starts itself (the card cannot hold two NCCL ranks):
+
+21. ``lanczos_sharded(shard_operator(H), n=400)`` at N=160^3 in fp32 from
+    phase 5's start vector: its 20 lowest Ritz values against phase 5's
+    and the unsharded recurrence's (eps32 ||H||_G), with walls and launch
+    counts (>= 2 SpMV launches a step: the slab and its halo correction);
+    then, in this process, every rank's slab matvec at D = 4 and 8 (40 and
+    20 planes) fed its halo planes cut from the global x, against the
+    global matvec's rows in fp32 and fp64 (phase 3's gates), the slab and
+    correction kernels against their plain version, the slab SpMV timed;
+    ``benchmark_matvec`` on the flagship within 50-100% of the copy rate.
+22. ``shard_operator`` of phase 15's n_fine=216 operator and of the N=120
+    deuteron CompositeV2: matvecs against the unsharded ones in fp32 and
+    fp64 (``ops/dd.py:to_float64``); every level's slab and 4-plane
+    halo-correction SpMV of those sharded operators, and of the n_fine=72
+    one, against their plain version in fp32 and fp64; the n_fine=216
+    level slabs at D = 4 (18 and 27 planes) against their plain version
+    and timed; phase 14's pipeline with its fp32 compensated
+    ``eigsh_restarted`` on the sharded operator, held to phase 14's scipy
+    values and residual gates, its launches counted over that solve alone.
+23. The v1 ``CompositeOperator`` at N=120 (``eigs_nonsym(k=8,
+    max_basis=300, tol=1e-4)``, fp32), unsharded and through
+    ``shard_composite``, each held to the N=120 golden as phase 9 holds it;
+    ``lanczos_sharded`` on ``shard_operator`` and ``shard_ell_halo`` of the
+    N=60 ELL against the unsharded recurrence (1e-5).
+
+The line before the last is a JSON object of the kernels (with their
+sharded launch counts and slab times); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1154,23 +1182,29 @@ def _northstar():
     return northstar_torch
 
 
-def phase_northstar_small():
+def phase_northstar_small(mesh=None, ref=None):
+    """Phase 14 (and, with ``mesh``, phase 22's sharded solve): returns
+    (max abs error per kernel, the scipy reference values, launches)."""
     import scipy.sparse
     import scipy.sparse.linalg
 
-    print("== north-star pipeline at n_fine=72 (k=100 + 10, fp32 tol 3e-7, refinement tol "
-          "1e-8) vs scipy eigsh(L + I, k=110, 'SA', tol=1e-12)")
+    print(f"== north-star pipeline at n_fine=72 (k=100 + 10, fp32 tol 3e-7, refinement tol "
+          f"1e-8{'; the fp32 solve row-sharded over ' + repr(mesh) if mesh else ''}) vs scipy "
+          "eigsh(L + I, k=110, 'SA', tol=1e-12)")
+    reset_launches()
     t0 = time.perf_counter()
-    info, extra = _northstar().run(n_fine=72, device="cuda", verbose=False)
+    info, extra = _northstar().run(n_fine=72, device="cuda", verbose=False, mesh=mesh)
     wall = time.perf_counter() - t0
+    launches = read_launches()
     print(f"  {info['num_points']} points, M = {info['m_operator']}, {info['n_interface_classes']} "
           f"interface classes; wall {wall:.2f} s (fp32 solve {info['t_solve_fp32_s']:.2f} s, "
           f"{info['cycles']} cycles; refinement {info['t_refine_s']:.2f} s)")
     check(info["refine_completed"], f"n_fine=72 refinement failed: {info.get('refine_error')}")
     L = extra["L"]
     t0 = time.perf_counter()
-    ref = np.sort(scipy.sparse.linalg.eigsh(L + scipy.sparse.identity(L.shape[0]), k=110,
-                                            which="SA", tol=1e-12)[0])[:100] - 1.0
+    if ref is None:
+        ref = np.sort(scipy.sparse.linalg.eigsh(L + scipy.sparse.identity(L.shape[0]), k=110,
+                                                which="SA", tol=1e-12)[0])[:100] - 1.0
     lam, rel = extra["lam"], extra["rel_shifted"]
     diff = np.abs(np.sort(lam) - ref)
     print(f"  scipy eigsh {time.perf_counter() - t0:.2f} s; max |lambda - scipy| {diff.max():.3e} "
@@ -1179,7 +1213,23 @@ def phase_northstar_small():
     print(f"    lowest eigenvalues {np.round(np.sort(lam)[:8], 10).tolist()}")
     check(diff.max() <= 1e-8, f"n_fine=72: eigenvalues off scipy by {diff.max():.3e}")
     check(rel.max() <= 3e-8, f"n_fine=72: true residual {rel.max():.3e} > 3e-8")
-    return check_operator_kernels(extra["op"], "n_fine=72")
+    if mesh is not None:
+        # The sharded fp32 solve's own launches (the refinement runs whole).
+        launches = {name: {"total": sum(by_dt.values()), **by_dt}
+                    for name, by_dt in info["launches_solve"].items()}
+        print(f"  launches in the sharded fp32 solve {json.dumps(launches)}")
+        # This operator's interface rows all take the ELL tail (0 classes):
+        # the sharded interface kernel is held on the n_fine=216 and N=120
+        # operators instead.
+        check(launches["stencil_spmv"]["float32"] > 0, "sharded n_fine=72: no SpMV launch")
+        from lanczos_tpu_torch.ops.dd import to_float64
+        from lanczos_tpu_torch.parallel import shard_operator
+
+        gen = torch.Generator(device="cuda").manual_seed(14)
+        worst = max(hold_sharded_levels(shard_operator(o, mesh), "n_fine=72", gen)
+                    for o in (extra["op"], to_float64(extra["op"])))
+        return {"stencil_spmv": worst}, ref, launches
+    return check_operator_kernels(extra["op"], "n_fine=72"), ref, launches
 
 
 def phase_northstar(n_fine):
@@ -1221,7 +1271,7 @@ def phase_northstar(n_fine):
     info["busy"] = northstar_busy_shares(info, extra)
     northstar_kernel_times(extra["op"], launches)
     print(f"  record: {json.dumps(info)}")
-    return info, max_abs
+    return info, max_abs, extra["op"]
 
 
 def busy_share(fn):
@@ -1675,6 +1725,300 @@ def phase_bench(copy_gbs):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Row sharding (lanczos_tpu_torch/parallel/): world size 1 over NCCL on the
+# card; D = 4 and 8 slabs in one process
+
+
+def start_row_mesh():
+    """A one-rank NCCL process group (the script sets the launcher's
+    environment itself) and its row mesh."""
+    from lanczos_tpu_torch.parallel import initialize_distributed, make_row_mesh
+    from lanczos_tpu_torch.parallel.launch import free_port
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), WORLD_SIZE="1",
+                      RANK="0", LOCAL_RANK="0")
+    check(initialize_distributed(device="cuda") == 1, "the process group is not of one rank")
+    mesh = make_row_mesh()
+    import torch.distributed as dist
+
+    print(f"== row mesh: {mesh}, backend {dist.get_backend()}")
+    check(dist.get_backend() == "nccl" and mesh.device.type == "cuda", "the mesh is not NCCL")
+    # The first collectives set up the NCCL communicator: done here, so the
+    # timed runs below do not carry it.  At D = 1 the halo exchange hands
+    # the rank its own last plane as from_prev and first as from_next.
+    t0 = time.perf_counter()
+    planes = torch.arange(6.0, device="cuda").reshape(2, 3)
+    from_prev, from_next = mesh.halo_exchange(planes[0], planes[1])
+    total = float(mesh.all_reduce(planes.sum()))
+    gathered = mesh.all_gather(planes)
+    torch.cuda.synchronize()
+    print(f"  first collectives (communicator set-up) {time.perf_counter() - t0:.3f} s")
+    check(from_prev.tolist() == planes[1].tolist() and from_next.tolist() == planes[0].tolist()
+          and total == 15.0 and gathered.tolist() == planes.tolist(),
+          "the one-rank collectives do not return the rank's own data")
+    return mesh
+
+
+def slab_ops(H, d):
+    """Every rank's ShardedStencilOperator of H split into d z-slabs, built
+    in this process (a rank's slab arithmetic needs no collective)."""
+    from lanczos_tpu_torch.parallel import RowMesh
+    from lanczos_tpu_torch.parallel.distributed import ShardedStencilOperator
+
+    return [ShardedStencilOperator(H, RowMesh(None, r, d, H.device)) for r in range(d)]
+
+
+def phase_sharded_flagship(lt, mesh, flagship, copy_gbs, floor_ms):
+    """Phase 21: lanczos_sharded(shard_operator(H), n=400) at N=160^3 fp32
+    over the one-rank NCCL mesh against the unsharded recurrence; each
+    rank's slab matvec at D = 4 and 8 (fp32, fp64) against the global
+    matvec; the slab kernels against their plain version and timed;
+    benchmark_matvec on the flagship."""
+    from lanczos_tpu_torch.ops import stencil_kernels as sk
+    from lanczos_tpu_torch.parallel import lanczos_sharded, shard_operator
+    from lanczos_tpu_torch.solver.tridiag import ritz_from_factorization
+    from lanczos_tpu_torch.utils.metrics import benchmark_matvec
+
+    print("== sharded flagship: lanczos_sharded(shard_operator(H), n=400) at N=160^3, fp32, "
+          f"over {mesh}, against the unsharded recurrence and phase 5's eigsh")
+    N, n, k = 160, 400, 20
+    v0 = np.random.default_rng(99).uniform(-1.0, 1.0, N**3)
+    H = lt.build_regular_hamiltonian(N, 25.0, lt.deuteron_potential_3d, stencil="27",
+                                     dtype=torch.float32, device="cuda")
+    tol = fp32_tolerance(H)
+    Hs = shard_operator(H, mesh)
+    walls, thetas = {}, {}
+    for label, run in (("unsharded", lambda: lt.lanczos(H, n, v0=v0)),
+                       ("sharded", lambda: lanczos_sharded(Hs, n, v0=v0)),
+                       ("sharded again", lambda: lanczos_sharded(Hs, n, v0=v0))):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        theta, X, _ = ritz_from_factorization(run())
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        if label == "sharded":
+            launches = read_launches()
+        thetas[label] = np.sort(theta.double().cpu().numpy())[:k]
+        del X
+    torch.cuda.empty_cache()
+    print(f"  walls (recurrence + Ritz): {json.dumps({a: round(b, 4) for a, b in walls.items()})} s;"
+          f" sharded launches {json.dumps(launches)}")
+    check(launches["stencil_spmv"]["float32"] >= 2 * n,
+          f"the sharded recurrence launched the SpMV {launches['stencil_spmv']['float32']} times")
+    d_flag = np.abs(thetas["sharded"] - np.sort(flagship[torch.float32]["vals"])).max()
+    d_one = np.abs(thetas["sharded"] - thetas["unsharded"]).max()
+    print(f"  lowest {k} Ritz values: max |sharded - phase 5 eigsh| {d_flag:.3e}, max |sharded - "
+          f"unsharded| {d_one:.3e} MeV (gate eps32 ||H||_G = {tol:.3e})")
+    check(max(d_flag, d_one) <= tol, "the sharded flagship's Ritz values are off the unsharded")
+
+    print("  rank slabs at D = 4 and 8: local_matvec(x_r, from_prev, from_next) vs the global "
+          "matvec's rows; the slab kernels vs their plain version")
+    max_abs = 0.0
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rows_t = {}
+    for dtype in (torch.float32, torch.float64):
+        Hd = H if dtype == torch.float32 else lt.build_regular_hamiltonian(
+            N, 25.0, lt.deuteron_potential_3d, stencil="27", dtype=dtype, device="cuda")
+        x = torch.randn(Hd.shape[0], generator=gen, device="cuda", dtype=dtype)
+        y_ref = Hd.matvec(x)
+        plane = N * N
+        for d in (4, 8):
+            ops = slab_ops(Hd, d)
+            rows = Hd.shape[0] // d
+            for r, op in enumerate(ops):
+                xr = x[r * rows:(r + 1) * rows]
+                prev = x.roll(plane - r * rows)[:plane]
+                nxt = x.roll(-(r + 1) * rows)[:plane]
+                against_plain(f"{str(dtype)[6:]:8s} D={d} rank {r} slab {op.slab.grid_shape[0]} "
+                              "planes vs global", op.local_matvec(xr, prev, nxt),
+                              y_ref[r * rows:(r + 1) * rows])
+            op = ops[1]
+            for kop in (op.slab, op.corr):
+                xk = torch.randn(kop.shape[0], generator=gen, device="cuda", dtype=dtype)
+                max_abs = max(max_abs, against_plain(
+                    f"{str(dtype)[6:]:8s} stencil_spmv D={d} {'x'.join(map(str, kop.grid_shape))}",
+                    sk.stencil_spmv(kop, xk), sk.stencil_spmv_reference(kop, xk)))
+            if dtype == torch.float32:
+                rows_t[d] = slab_row(op.slab, f"stencil_spmv D={d} slab", copy_gbs, floor_ms)
+        del Hd, x, y_ref
+        torch.cuda.empty_cache()
+
+    st = benchmark_matvec(H)
+    share = st.effective_gbps / copy_gbs
+    print(f"  benchmark_matvec(flagship): {st}; {share:.1%} of the copy rate (held in [50%, 100%])")
+    check(0.5 <= share <= 1.0, f"benchmark_matvec reads {share:.1%} of the copy rate")
+    del H, Hs
+    torch.cuda.empty_cache()
+    return dict(walls=walls, launches=launches, max_abs=max_abs, slab_rows=rows_t,
+                benchmark_gbps=st.effective_gbps)
+
+
+def slab_row(slab, label, copy_gbs, floor_ms, peak_flops=PEAK_FP32_FLOPS):
+    """Kernel, plain and cuSPARSE times of the SpMV on one rank's slab."""
+    from lanczos_tpu_torch.ops import stencil_kernels as sk
+
+    m = slab.shape[0]
+    elem = slab.weights.element_size()
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    xs = itertools.cycle([torch.randn(m, generator=gen, device="cuda", dtype=slab.dtype)
+                          for _ in range(8)])
+    csr = stencil_csr(slab)
+    row = kernel_row(f"{label} {'x'.join(map(str, slab.grid_shape))}",
+                     lambda: sk.stencil_spmv(slab, next(xs)),
+                     lambda: sk.stencil_spmv_reference(slab, next(xs)),
+                     lambda: torch.mv(csr, next(xs)),
+                     (2 if slab.diag is None else 3) * elem * m, 2 * len(slab.offsets) * m,
+                     copy_gbs, floor_ms, plain_launches=10, peak_flops=peak_flops)
+    row["copy_share"] = (2 if slab.diag is None else 3) * elem * m / copy_gbs / 1e6 / row["ms"]
+    del csr
+    return row
+
+
+def hold_sharded_levels(so, label, gen):
+    """The SpMV kernel of every level of a sharded CompositeV2 against its
+    plain version, at the shapes its matvec launches it: the rank's slab
+    and the 4-plane halo-correction grid.  Returns the max abs error."""
+    from lanczos_tpu_torch.ops import stencil_kernels as sk
+
+    worst = 0.0
+    for lv in so.levels:
+        check(lv.kernel, f"{label}: a level slab is outside the SpMV kernel's domain")
+        for kop in (lv.slab, lv.corr):
+            xk = torch.randn(kop.shape[0], generator=gen, device="cuda", dtype=kop.dtype)
+            worst = max(worst, against_plain(
+                f"{str(kop.dtype)[6:]:8s} stencil_spmv {label} {'x'.join(map(str, kop.grid_shape))}",
+                sk.stencil_spmv(kop, xk), sk.stencil_spmv_reference(kop, xk)))
+    return worst
+
+
+def phase_sharded_composite2(lt, mesh, n216, n120, northstar_ref, copy_gbs, floor_ms):
+    """Phase 22: shard_operator of phase 15's n_fine=216 operator and of the
+    N=120 deuteron CompositeV2 over the one-rank mesh, matvecs against the
+    unsharded ones in fp32 and fp64, and each level's slab and correction
+    kernels against their plain version; the slab kernels of the n_fine=216
+    levels at D = 4 against their plain version and timed; the n_fine=72
+    pipeline with its fp32 solve sharded, held as phase 14."""
+    from lanczos_tpu_torch.ops import stencil_kernels as sk
+    from lanczos_tpu_torch.ops.dd import to_float64
+    from lanczos_tpu_torch.parallel import shard_operator
+    from lanczos_tpu_torch.utils.metrics import exchange_stats
+
+    print(f"== sharded CompositeV2 over {mesh}: matvecs against the unsharded operators")
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    cases = []
+    for name, op32 in (("n_fine=216", n216), ("N=120", n120)):
+        for o in (op32, to_float64(op32)):
+            x = torch.randn(o.shape[0], generator=gen, device="cuda", dtype=o.dtype) * o.live
+            cases.append((name, o, x, o.matvec(x)))
+    reset_launches()  # the sharded matvecs' own launches, read below
+    sharded = []
+    for name, o, x, want in cases:
+        so = shard_operator(o, mesh)
+        xs = torch.as_tensor(so.host.to_sharded(x.cpu().numpy()), device="cuda")
+        y = torch.as_tensor(so.host.from_sharded(so.matvec(xs).cpu().numpy()), device="cuda")
+        against_plain(f"{str(o.dtype)[6:]:8s} {name} sharded matvec vs unsharded", y, want)
+        ex = exchange_stats(so, mesh.size)
+        print(f"    runs per level {[len(r) for r in so.support_runs]}; exchange at D=1 "
+              f"{ex['per_device_recv_elements']} elements ({100 * ex['fraction_of_m']:.2f}% of M)")
+        sharded.append((name, so))
+    launches = read_launches()
+    del cases
+    print(f"  launches in the sharded matvecs {json.dumps(launches)}")
+    for name in ("stencil_spmv", "apply_fused_interface"):
+        check(launches[name]["float32"] > 0 and launches[name]["float64"] > 0,
+              f"the sharded CompositeV2 did not launch {name} in both dtypes")
+
+    print("  the level kernels of the sharded matvecs (slab and halo correction) vs plain")
+    max_abs, rows_t = 0.0, {}
+    for name, so in sharded:
+        max_abs = max(max_abs, hold_sharded_levels(so, name, gen))
+    del sharded
+
+    print("  the n_fine=216 level slabs at D = 4 (18 and 27 planes): kernel vs plain, and times")
+    for level in n216.level_ops:
+        op = slab_ops(level, 4)[0]
+        for dtype in (torch.float32, torch.float64):
+            kop = op.slab if dtype == torch.float32 else to_float64(op.slab)
+            xk = torch.randn(kop.shape[0], generator=gen, device="cuda", dtype=dtype)
+            max_abs = max(max_abs, against_plain(
+                f"{str(dtype)[6:]:8s} stencil_spmv D=4 slab {'x'.join(map(str, kop.grid_shape))}",
+                sk.stencil_spmv(kop, xk), sk.stencil_spmv_reference(kop, xk)))
+        rows_t["x".join(map(str, op.slab.grid_shape))] = slab_row(
+            op.slab, "stencil_spmv n_fine=216 D=4 slab", copy_gbs, floor_ms)
+
+    n72_abs, _, solve_launches = phase_northstar_small(mesh=mesh, ref=northstar_ref)
+    return dict(launches=launches, solve_launches=solve_launches,
+                max_abs=max(max_abs, n72_abs["stencil_spmv"]), slab_rows=rows_t)
+
+
+def phase_composite_v1(lt, mesh, host):
+    """Phase 23: the v1 CompositeOperator at N=120 through eigs_nonsym,
+    unsharded and through shard_composite over the one-rank mesh, held to
+    the N=120 golden as phase 9 holds it; lanczos_sharded on shard_operator
+    and shard_ell_halo of the N=60 ELL against the unsharded recurrence."""
+    from lanczos_tpu_torch.ops.composite import shard_composite
+    from lanczos_tpu_torch.parallel import lanczos_sharded, shard_ell_halo, shard_operator
+
+    print("== v1 CompositeOperator at N=120 (fp32): eigs_nonsym(k=8, max_basis=300, tol=1e-4), "
+          f"unsharded and sharded over {mesh}, vs lanczos_tpu fp64 golden")
+    golden = load_golden(120)
+    lat, _, norms = host["N=120"]
+    t0 = time.perf_counter()
+    comp, perm = lt.assemble_irregular_hamiltonian_composite(
+        lat, lt.deuteron_potential_3d, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  assembly {time.perf_counter() - t0:.2f} s: {comp.shape[0]} points, levels "
+          f"{[(lv.nbox, lv.m) for lv in comp.levels]} (boxes, points a side), "
+          f"{comp.ifc_rows.shape[0]} interface rows")
+    v_lat = np.random.default_rng(99).uniform(-1.0, 1.0, lat.num_points)
+    sc = shard_composite(comp, mesh.size)
+    out = {}
+    for label, op, v0 in (("unsharded", comp, v_lat[perm]),
+                          ("shard_composite", sc.as_operator(mesh), sc.to_sharded(v_lat[perm]))):
+        reset_launches()
+        t0 = time.perf_counter()
+        res = lt.eigs_nonsym(op, k=8, max_basis=300, tol=1e-4, v0=v0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        vals, resid = res.eigenvalues.cpu().numpy(), res.residuals.cpu().numpy()
+        print(f"  {label}: wall {wall:.3f} s, launches {json.dumps(read_launches())}")
+        check(bool(torch.isfinite(res.eigenvectors).all()) and np.isfinite(vals).all(),
+              f"v1 {label}: non-finite result")
+        # The golden holds the 8 lowest values; a single-vector solve may
+        # hold fewer copies of a multiplet and reach past them.  Pairs above
+        # the golden's range are printed, not held.
+        top = max(golden["eigenvalues"]) + 1e-2
+        for lam, r in zip(vals[vals > top], resid[vals > top]):
+            print(f"    {lam:14.8f} resid {r:.3e} - (above the golden range)")
+        worst, n_checked = check_against(f"v1 N=120 fp32 {label} vs lanczos_tpu fp64",
+                                         vals[vals <= top], resid[vals <= top], golden, EPS32,
+                                         norms, 1e-4)
+        out[label] = dict(wall=wall, worst=worst, checked=n_checked)
+        del res
+    del comp, sc
+    torch.cuda.empty_cache()
+
+    print("== lanczos_sharded(n=100) on the N=60 ELL (fp32): shard_operator (all-gather) and "
+          "shard_ell_halo vs the unsharded recurrence")
+    ell = lt.assemble_irregular_hamiltonian(host["N=60"][0], lt.deuteron_potential_3d,
+                                            dtype=torch.float32, device="cuda")
+    ref = lt.lanczos(ell, 100, seed=5)
+    a_ref, b_ref = ref.alpha.double().cpu().numpy(), ref.beta.double().cpu().numpy()
+    for label, op in (("shard_operator", shard_operator(ell, mesh)),
+                      ("shard_ell_halo", shard_ell_halo(ell, mesh))):
+        fac = lanczos_sharded(op, 100, seed=5)
+        da = np.abs(fac.alpha.double().cpu().numpy() - a_ref).max() / np.abs(a_ref).max()
+        db = np.abs(fac.beta.double().cpu().numpy() - b_ref).max() / np.abs(b_ref).max()
+        print(f"  {label}: max |alpha - alpha_1| / max |alpha_1| {da:.3e}, beta {db:.3e} "
+              f"(gate 1e-5)")
+        check(max(da, db) <= 1e-5, f"lanczos_sharded on {label} is off the unsharded recurrence")
+    del ell, ref
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script drives the port on a GPU")
@@ -1700,6 +2044,7 @@ def main():
     times["apply_fused_interface"] = phase_interface_timing(lt, ops, host, copy_gbs, floor_ms)
     phase_irregular_golden(lt, ops, host)
     phase_two_sided(lt, ops, host)
+    n120 = ops[("N=120", torch.float32)][0]  # phase 22 shards it
     del ops
     torch.cuda.empty_cache()
     irregular = phase_irregular_flagship(lt, host)
@@ -1717,19 +2062,34 @@ def main():
         18: lambda: phase_cli_block(lt),
         19: lambda: phase_lookahead(lt, n60),
         20: lambda: phase_bench(copy_gbs),
+        # Row sharding: one NCCL rank on the card (21-23).
+        21: lambda: phase_sharded_flagship(lt, mesh, flagship, copy_gbs, floor_ms),
+        22: lambda: phase_sharded_composite2(lt, mesh, results[15][2], n120, results[14][1],
+                                             copy_gbs, floor_ms),
+        23: lambda: phase_composite_v1(lt, mesh, host),
     }
     results = {}
-    for n, phase in phases.items():
-        t0 = time.perf_counter()
-        results[n] = phase()
-        torch.cuda.empty_cache()
-        print(f"== phase {n} done in {time.perf_counter() - t0:.1f} s "
-              f"(at {time.perf_counter() - t_start:.1f} s)")
+    import torch.distributed as dist
+
+    try:
+        for n, phase in phases.items():
+            if n == 21:
+                mesh = start_row_mesh()
+            t0 = time.perf_counter()
+            results[n] = phase()
+            torch.cuda.empty_cache()
+            print(f"== phase {n} done in {time.perf_counter() - t0:.1f} s "
+                  f"(at {time.perf_counter() - t_start:.1f} s)")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     print(f"== all phases done at {time.perf_counter() - t_start:.1f} s")
-    northstar, northstar_abs = results[15]
-    for errs in (results[14], northstar_abs):
+    northstar, northstar_abs, _ = results[15]
+    for errs in (results[14][0], northstar_abs):
         for name, err in errs.items():
             max_abs[name] = max(max_abs[name], err)
+    for n in (21, 22):
+        max_abs["stencil_spmv"] = max(max_abs["stencil_spmv"], results[n]["max_abs"])
     flagship = flagship[torch.float32]
 
     kernels = [
@@ -1749,7 +2109,15 @@ def main():
                  block_launches={dt: ls[k["name"]] for dt, ls in results[17].items()},
                  cli_block_launches=results[18][k["name"]],
                  lookahead_launches=results[19][k["name"]],
-                 bench_launches=results[20][k["name"]])
+                 bench_launches=results[20][k["name"]],
+                 sharded_launches={
+                     "flagship": results[21]["launches"][k["name"]],
+                     "composite_v2_matvecs": results[22]["launches"][k["name"]],
+                     "northstar_n72_solve": results[22]["solve_launches"][k["name"]]})
+        if k["name"] == "stencil_spmv":
+            k["sharded_slab_times"] = {
+                **{f"N160_D{d}": row for d, row in results[21]["slab_rows"].items()},
+                **{f"n216_D4_{g}": row for g, row in results[22]["slab_rows"].items()}}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,14 @@ these paths:
   (``two_sided_lanczos_lookahead``/``lookahead_eigs``);
 * operator I/O and the Mathematica export (``utils/io.py``), and the
   flagship SpMV benchmark (``utils/bench_impl.py``), both also CLI
-  subcommands (``export-matrix``, ``bench``).
+  subcommands (``export-matrix``, ``bench``);
+* the v1 ``CompositeOperator`` (``assemble_irregular_hamiltonian_composite``:
+  per-level box stacks with halo faces, plain PyTorch);
+* row-sharded execution on ``torch.distributed`` (``parallel/``: NCCL on
+  cards, gloo on the CPU): the z-slab stencil, sharded ELL and halo ELL,
+  ``lanczos_sharded``, the sharded CompositeV2 and v1 composite, with
+  ``eigsh_restarted`` and ``eigs_nonsym`` running on them, and the
+  exchange and matvec metrics (``utils/metrics.py``).
 
 Constructors and builders allocate on ``"cuda"`` unless given ``device=``.
 It imports ``torch`` and never ``jax``.
@@ -70,8 +77,10 @@ from .models.lattice import IrregularLattice, build_lattice, potential_spacings 
 from .models.irrlap import laplacian_weights  # noqa: E402
 from .models.irr_hamiltonian import (  # noqa: E402
     assemble_irregular_hamiltonian,
+    assemble_irregular_hamiltonian_composite,
     assemble_irregular_hamiltonian_composite2,
 )
+from .ops.composite import CompositeOperator  # noqa: E402
 from .ops.composite2 import CompositeV2  # noqa: E402
 from .solver.arnoldi import arnoldi, eigs_nonsym  # noqa: E402
 from .solver.two_sided import two_sided_eigs, two_sided_lanczos  # noqa: E402

@@ -1,7 +1,8 @@
 """Carry objects of the JAX package across to the port.
 
 :func:`from_jax` turns a ``lanczos_tpu`` StencilOperator, EllOperator,
-DenseOperator, CompositeV2 (with its transpose),
+DenseOperator, CompositeV2 (with its transpose), v1 CompositeOperator,
+EllHaloOperator (one rank's part, given the port's row mesh),
 InterfacePlan, IrregularLattice, LanczosFactorization,
 BlockLanczosFactorization or LookAheadFactorization into the port's
 counterpart, so both packages can compute with identical operators and
@@ -18,6 +19,7 @@ import torch
 
 from ._util import DEFAULT_DEVICE, as_torch_dtype
 from .models.lattice import IrregularLattice
+from .ops.composite import CompositeOperator, LevelBlock
 from .ops.composite2 import CompositeV2
 from .ops.interface_kernel import InterfacePlan
 from .ops.operators import DenseOperator, EllOperator, StencilOperator
@@ -28,10 +30,13 @@ from .solver.look_ahead import LookAheadFactorization
 __all__ = ["from_jax"]
 
 
-def from_jax(obj, *, device=DEFAULT_DEVICE, dtype=None):
+def from_jax(obj, *, device=DEFAULT_DEVICE, dtype=None, mesh=None):
     """The port's counterpart of a ``lanczos_tpu`` object, on ``device``.
 
-    Floating arrays are converted to ``dtype`` (default: their own).
+    Floating arrays are converted to ``dtype`` (default: their own).  An
+    EllHaloOperator needs ``mesh`` (``parallel/mesh.py:RowMesh``, of as
+    many ranks as the JAX operator's devices): the result is this rank's
+    rows, on the mesh's device.
     """
 
     def t(a, dt=dtype):
@@ -81,6 +86,34 @@ def from_jax(obj, *, device=DEFAULT_DEVICE, dtype=None):
             symmetric=obj.symmetric,
             transpose_op=None if obj.transpose_op is None
             else from_jax(obj.transpose_op, device=device, dtype=dtype),
+        )
+    if kind == "CompositeOperator":
+        levels = [
+            LevelBlock(t(lv.adjacency, torch.int64), t(lv.weights), lv.start, lv.nbox, lv.m)
+            for lv in obj.levels
+        ]
+        return CompositeOperator(
+            diag=t(obj.diag), levels=levels, ifc_rows=t(obj.ifc_rows, torch.int64),
+            ifc_cols=t(obj.ifc_cols, torch.int64), ifc_vals=t(obj.ifc_vals),
+            ifc_buckets=[
+                (t(r, torch.int64), t(i, torch.int64), t(w)) for r, i, w in obj.ifc_buckets
+            ],
+        )
+    if kind == "EllHaloOperator":
+        from .parallel.distributed import EllHaloOperator
+
+        if mesh is None or mesh.size != obj.export_ids.shape[0]:
+            raise ValueError("an EllHaloOperator needs the row mesh of its device count")
+        m = obj.cols.shape[0]
+        rows = slice(mesh.rank * (m // mesh.size), (mesh.rank + 1) * (m // mesh.size))
+        cols, vals = np.array(obj.cols)[rows], np.array(obj.vals)[rows]
+        return EllHaloOperator(
+            cols=torch.as_tensor(cols, dtype=torch.int64, device=mesh.device),
+            vals=torch.as_tensor(vals, device=mesh.device,
+                                 dtype=None if dtype is None else as_torch_dtype(dtype)),
+            export_ids=torch.as_tensor(np.array(obj.export_ids), dtype=torch.int64,
+                                       device=mesh.device),
+            mesh=mesh, m=m,
         )
     if kind == "LanczosFactorization":
         return LanczosFactorization(

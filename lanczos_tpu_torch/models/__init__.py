@@ -21,6 +21,7 @@ from .lattice import (
 from .irrlap import WeightCache, laplacian_weights, laplacian_weights_batch
 from .irr_hamiltonian import (
     assemble_irregular_hamiltonian,
+    assemble_irregular_hamiltonian_composite,
     assemble_irregular_hamiltonian_composite2,
     irregular_laplacian_rows,
 )

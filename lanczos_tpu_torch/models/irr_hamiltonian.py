@@ -1,5 +1,5 @@
-"""Irregular-lattice Hamiltonian assembly: H = -T + V as padded ELL or as a
-CompositeV2.
+"""Irregular-lattice Hamiltonian assembly: H = -T + V as padded ELL, as a
+CompositeV2 or as the v1 CompositeOperator.
 
 Counterpart of ``lanczos_tpu/models/irr_hamiltonian.py``.  The row assembly
 (neighbor search, least-squares weights solved once per unique stencil
@@ -38,6 +38,7 @@ from .potentials import DEUTERON_REDUCED_REST_ENERGY_MEV, kinetic_prefactor
 
 __all__ = [
     "assemble_irregular_hamiltonian",
+    "assemble_irregular_hamiltonian_composite",
     "assemble_irregular_hamiltonian_composite2",
     "irregular_laplacian_rows",
 ]
@@ -183,6 +184,32 @@ def _diagonal(lat, weights, t_factor, potential) -> np.ndarray:
         v = potential(*(torch.from_numpy(phys[:, a]) for a in range(lat.ndim)))
         diag = diag + np.asarray(v, dtype=np.float64)
     return diag
+
+
+def assemble_irregular_hamiltonian_composite(
+    lat: IrregularLattice,
+    potential: Optional[Callable] = None,
+    *,
+    t_factor: Optional[float] = None,
+    rest_energy: float = DEUTERON_REDUCED_REST_ENERGY_MEV,
+    dtype=torch.float32,
+    device=DEFAULT_DEVICE,
+):
+    """H = -T + V as a v1 CompositeOperator (``ops/composite.py``).
+
+    Returns (op, perm): ``perm`` maps lattice point order -> the operator's
+    level-major order (operator vectors are lattice vectors indexed by
+    perm).  Numerically the padded-ELL assembly's operator.
+    """
+    from ..ops.composite import build_composite
+
+    if t_factor is None:
+        t_factor = kinetic_prefactor(lat.s, rest_energy)
+    nbrs, rels, weights = irregular_laplacian_rows(lat)
+    diag = _diagonal(lat, weights, t_factor, potential)
+    return build_composite(
+        lat, nbrs, rels, weights, diag, scale=-t_factor, dtype=dtype, device=device,
+    )
 
 
 def assemble_irregular_hamiltonian_composite2(

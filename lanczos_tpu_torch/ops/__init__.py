@@ -2,11 +2,19 @@ from .operators import (
     DenseOperator,
     EllOperator,
     LinearOperator,
+    RowShardedOperator,
     StencilOperator,
     as_operator,
     make_stencil_operator,
 )
 from .assemble import ell_from_coo, ell_from_scipy, stencil_to_ell
+from .composite import (
+    CompositeOperator,
+    ShardedComposite,
+    ShardedCompositeOperator,
+    build_composite,
+    shard_composite,
+)
 from .composite2 import CompositeV2, build_composite_v2, ell_tail
 from .interface_kernel import (
     FusedInterface,

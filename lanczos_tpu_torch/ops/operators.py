@@ -37,6 +37,7 @@ from .stencil_kernels import (
 
 __all__ = [
     "LinearOperator",
+    "RowShardedOperator",
     "DenseOperator",
     "EllOperator",
     "StencilOperator",
@@ -93,6 +94,40 @@ class LinearOperator(nn.Module):
         import scipy.sparse
 
         return scipy.sparse.csr_matrix(to_numpy(self.to_dense()))
+
+
+class RowShardedOperator(LinearOperator):
+    """An operator whose rows are split over the ranks of a row mesh
+    (``parallel/mesh.py:RowMesh``, kept in ``mesh``).
+
+    Each rank holds ``local_rows`` rows, from global row ``row_offset``;
+    ``matvec``/``matmat`` take and return this rank's rows of a vector or
+    block and exchange what they need through the mesh, so every rank calls
+    them together.  ``shape`` is the global one; a ``live`` buffer, where a
+    subclass has one, is 1 on this rank's rows that hold a point and 0 on
+    padding, and a start vector is multiplied by it.  The solvers find
+    ``mesh`` on the operator and all-reduce their dots and norms over it
+    (``solver/rows.py``)."""
+
+    def __init__(self, mesh, m: int, local_rows: int):
+        super().__init__()
+        if m != mesh.size * local_rows:
+            raise ValueError(f"{m} rows do not split into {mesh.size} blocks of {local_rows}")
+        self.mesh = mesh
+        self.m = m
+        self.local_rows = local_rows
+        self.row_offset = mesh.rank * local_rows
+
+    @property
+    def shape(self):
+        return (self.m, self.m)
+
+    @property
+    def vec_shape(self):
+        return (self.local_rows,)
+
+    def to_dense(self):
+        raise NotImplementedError("a row-sharded operator has no dense form on one rank")
 
 
 class DenseOperator(LinearOperator):

@@ -22,7 +22,9 @@ projected matrix run on the host in float64 (numpy/scipy), as in JAX.
 A CompositeV2 start vector must be multiplied by the operator's ``live``
 mask: the dead slots carry an exact eigenvalue 0 (ops/composite2.py), which
 an unmasked start vector brings into the Krylov space.  ``eigs_nonsym``
-does not mask it (nor does the JAX package's); its callers do.
+does not mask it (nor does the JAX package's); its callers do.  A
+row-sharded operator's start vector is masked here, as the JAX package's
+sharded branch masks it (``arnoldi.py:339-354``).
 """
 
 from __future__ import annotations
@@ -33,10 +35,11 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .._util import as_torch_dtype, to_numpy
+from .._util import to_numpy
 from ..ops.operators import LinearOperator
-from .lanczos import _default_dot, _resolve_dot
+from .lanczos import _default_basis_dot, _default_dot, _resolve_dot
 from .results import EigResult, acceptance_inner_prod
+from .rows import Rows, _check_dtype, _start_vector
 
 __all__ = ["ArnoldiFactorization", "arnoldi", "arnoldi_kernel", "eigs_nonsym"]
 
@@ -60,16 +63,17 @@ class ArnoldiFactorization:
 
 
 def _extend(matvec: Callable, V, B, j0: int, j1: int, breakdown_iter, reorth_passes: int,
-            dot: Callable = _default_dot):
+            dot: Callable = _default_dot, basis_dot: Callable = _default_basis_dot):
     """Arnoldi steps j0..j1-1 into V (rows) and B (columns), in place;
-    ``dot`` takes the norm of each new direction."""
+    ``dot`` takes the norm of each new direction, ``basis_dot`` the
+    Gram-Schmidt coefficients."""
     eps = float(torch.finfo(V.dtype).eps)
     for j in range(j0, j1):
         w = matvec(V[j])
         Vj = V[: j + 1]
         h = torch.zeros(j + 1, dtype=V.dtype, device=V.device)
         for _ in range(reorth_passes):
-            c = Vj @ w
+            c = basis_dot(Vj, w)
             w = w - c @ Vj
             h = h + c
         hn = torch.sqrt(dot(w, w))
@@ -88,42 +92,24 @@ def arnoldi_kernel(
     *,
     reorth_passes: int = 2,
     compensated: bool = False,
+    dot: Callable = _default_dot,
+    basis_dot: Callable = _default_basis_dot,
 ) -> ArnoldiFactorization:
     """n Arnoldi steps from v0 (need not be normalized), on v0's device.
 
     Orthogonalization is CGS with ``reorth_passes`` passes (CGS2 default —
     the classical twice-is-enough result).  ``compensated=True`` takes the
-    norms with ``dot2_rounded`` (``ops/compensated.py``).
+    norms with ``dot2_rounded`` (``ops/compensated.py``); ``dot`` and
+    ``basis_dot`` are a row-sharded run's all-reduced reductions.
     """
-    dot = _resolve_dot(_default_dot, compensated)
+    dot = _resolve_dot(dot, compensated)
     m = v0.shape[0]
     V = torch.zeros((n + 1, m), dtype=v0.dtype, device=v0.device)
     V[0] = v0 / torch.sqrt(dot(v0, v0))
     H = torch.zeros((n + 1, n), dtype=v0.dtype, device=v0.device)
     bki = torch.tensor(n, dtype=torch.int64, device=v0.device)
-    bki = _extend(matvec, V, H, 0, n, bki, reorth_passes, dot)
+    bki = _extend(matvec, V, H, 0, n, bki, reorth_passes, dot, basis_dot)
     return ArnoldiFactorization(V=V, H=H, breakdown_iter=bki)
-
-
-def _start_vector(op, v0, seed, dtype):
-    m = op.shape[0]
-    if v0 is None:
-        gen = torch.Generator().manual_seed(seed)
-        v0 = torch.rand(m, generator=gen, dtype=dtype) * 2.0 - 1.0
-    v0 = torch.as_tensor(v0).to(device=op.device, dtype=dtype)
-    if v0.shape != (m,):
-        raise ValueError(f"v0 has shape {tuple(v0.shape)}, expected ({m},)")
-    return v0
-
-
-def _check_dtype(op, dtype):
-    dtype = op.dtype if dtype is None else as_torch_dtype(dtype)
-    if dtype != op.dtype:
-        raise ValueError(
-            f"dtype {dtype} differs from the operator's {op.dtype}; build the "
-            "operator in the dtype to solve in"
-        )
-    return dtype
 
 
 def arnoldi(
@@ -139,14 +125,16 @@ def arnoldi(
     """Run n Arnoldi steps on op (no symmetry assumed), on its device.
 
     ``v0`` defaults to Uniform(-1, 1) numbers from a ``torch.Generator``
-    seeded with ``seed``, drawn on the CPU.
+    seeded with ``seed``, drawn on the CPU.  A row-sharded operator's run
+    keeps this rank's rows of the basis.
     """
     if n > op.shape[0]:
         raise ValueError("n cannot exceed operator dimension")
     dtype = _check_dtype(op, dtype)
+    rows = Rows(op, compensated)
     return arnoldi_kernel(
         op.matvec, _start_vector(op, v0, seed, dtype), n, reorth_passes=reorth_passes,
-        compensated=compensated,
+        dot=rows.dot, basis_dot=rows.basis_dot,
     )
 
 
@@ -225,16 +213,22 @@ def eigs_nonsym(
     true residual is below ``tol``, when two verifications in a row fail to
     improve the worst residual by 1.2x, or after ``max_cycles``.
     ``compensated=True`` takes each cycle's norms with ``dot2_rounded``.
+
+    A row-sharded operator (``parallel/``) keeps the basis row-sharded:
+    every rank holds its rows of V and of the eigenvectors, and the
+    Gram-Schmidt products, norms and verification residuals are
+    all-reduced over its mesh (``solver/rows.py``); the start vector is
+    multiplied by the operator's ``live`` rows (ghost and dead slots).
     """
-    dot = _resolve_dot(_default_dot, compensated)
+    rows = Rows(op, compensated)
     mdim = op.shape[0]
     dtype = _check_dtype(op, dtype)
     m = max_basis or max(2 * k + 30, k + 12)
     m = min(m, mdim - 1)
 
     v0 = _start_vector(op, v0, seed, dtype)
-    V = torch.zeros((m + 1, mdim), dtype=dtype, device=op.device)
-    V[0] = v0 / torch.linalg.vector_norm(v0)
+    V = torch.zeros((m + 1, rows.n), dtype=dtype, device=op.device)
+    V[0] = v0 / rows.norm(v0)
     B = torch.zeros((m + 1, m), dtype=dtype, device=op.device)
     l = 0
     best = None
@@ -242,7 +236,8 @@ def eigs_nonsym(
     stall = 0
 
     for cycle in range(max_cycles):
-        _extend(op.matvec, V, B, l, m, torch.tensor(m, device=op.device), reorth_passes, dot)
+        _extend(op.matvec, V, B, l, m, torch.tensor(m, device=op.device), reorth_passes,
+                rows.dot, rows.basis_dot)
         Bh = to_numpy(B).astype(np.float64)
         Bm = Bh[:m, :m]
         bout = float(Bh[m, m - 1])
@@ -284,10 +279,10 @@ def eigs_nonsym(
             # drift from the true one in fp32), in float64 on the device.
             Yr = torch.as_tensor(Y.real[:, :k], dtype=torch.float64, device=op.device)
             Xk = V[:l].double().T @ Yr
-            Xk = Xk / torch.linalg.vector_norm(Xk, dim=0).clamp_min(1e-300)
+            Xk = Xk / rows.col_norms(Xk).clamp_min(1e-300)
             lam = torch.as_tensor(vals[:k].real.copy(), device=op.device)
             R = op.matmat(Xk.to(dtype).contiguous()).double() - Xk * lam
-            tres = to_numpy(torch.linalg.vector_norm(R, dim=0)) / scale[:k]
+            tres = to_numpy(rows.col_norms(R)) / scale[:k]
             worst = float(tres.max())
             if verbose:
                 print(f"  verify: max-true-rel-resid={worst:.2e}")

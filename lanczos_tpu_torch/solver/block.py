@@ -42,6 +42,7 @@ import torch
 from .._util import to_numpy
 from ..ops.operators import LinearOperator
 from .arnoldi import _check_dtype
+from .rows import Rows, _unsharded
 from .restart import _refine_host, _ritz_update
 from .results import EigResult, acceptance_inner_prod
 
@@ -227,6 +228,7 @@ def block_lanczos(
 ) -> BlockLanczosFactorization:
     """Run ``num_blocks`` blocks of block Lanczos on ``op``'s device from a
     seeded random (M, block_size) start block."""
+    _unsharded(op, "block_lanczos")
     if num_blocks * block_size > op.shape[0]:
         raise ValueError("num_blocks * block_size cannot exceed dimension M")
     dtype = _check_dtype(op, dtype)
@@ -293,7 +295,7 @@ def _block_cycle(matmat, V, q0, l: int, nb: int, b: int):
 def _refined_block(op, V, k: int, which: str):
     """Rayleigh–Ritz of the locked block V[:k] against the operator, in
     ``which`` order: (lam, Xr, true_resid)."""
-    lam, Xr, tres, _ = _refine_host(op, V[:k].T)
+    lam, Xr, tres, _ = _refine_host(op, V[:k].T, Rows(op))
     order = np.argsort(lam) if which == "SA" else np.argsort(-lam)
     return lam[order], Xr[:, torch.as_tensor(order, device=Xr.device)], tres[order]
 
@@ -335,6 +337,7 @@ def eigsh_block_restarted(
     n_locked:   Ritz vectors carried across restarts (default k + max(b, 4)).
     seed:       the start block's ``torch.Generator`` seed (drawn on the CPU).
     """
+    _unsharded(op, "eigsh_block_restarted")
     b = int(block_size)
     mdim = op.shape[0]
     dtype = _check_dtype(op, dtype)

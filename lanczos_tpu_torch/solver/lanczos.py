@@ -25,7 +25,6 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .._util import as_torch_dtype
 from ..ops.operators import LinearOperator
 
 __all__ = [
@@ -296,24 +295,20 @@ def lanczos(
     every device starts from the same vector.  ``dtype`` must be the
     operator's own (the default): the kernels take one dtype.
     ``compensated=True`` runs the recurrence's reductions through the
-    error-free-transform dot (``ops/compensated.py``).
+    error-free-transform dot (``ops/compensated.py``).  A row-sharded
+    operator (``parallel/``) runs the same recurrence with its dots
+    all-reduced over the mesh; ``V`` and ``resid`` are then this rank's
+    rows, alpha and beta the same on every rank.
     """
+    from .rows import Rows, _check_dtype, _start_vector
+
     m = op.shape[0]
     if n > m:
         raise ValueError(f"n={n} cannot exceed operator dimension M={m}")
-    dtype = op.dtype if dtype is None else as_torch_dtype(dtype)
-    if dtype != op.dtype:
-        raise ValueError(
-            f"dtype {dtype} differs from the operator's {op.dtype}; build the "
-            "operator in the dtype to solve in"
-        )
-    if v0 is None:
-        gen = torch.Generator().manual_seed(seed)
-        v0 = torch.rand(m, generator=gen, dtype=dtype) * 2.0 - 1.0
-    v0 = torch.as_tensor(v0).to(device=op.device, dtype=dtype)
-    if v0.shape != (m,):
-        raise ValueError(f"v0 has shape {tuple(v0.shape)}, expected ({m},)")
+    dtype = _check_dtype(op, dtype)
+    rows = Rows(op, compensated)
     return lanczos_kernel(
-        op.matvec, v0, n, reorth=reorth, reorth_passes=reorth_passes,
-        reorth_period=reorth_period, compensated=compensated,
+        op.matvec, _start_vector(op, v0, seed, dtype), n, reorth=reorth,
+        reorth_passes=reorth_passes, reorth_period=reorth_period, dot=rows.dot,
+        basis_dot=rows.basis_dot,
     )

@@ -32,6 +32,7 @@ import torch
 from .._util import to_numpy
 from ..ops.operators import LinearOperator
 from .results import EigResult, acceptance_inner_prod
+from .rows import _unsharded
 
 __all__ = [
     "LookAheadFactorization",
@@ -101,6 +102,7 @@ def two_sided_lanczos_lookahead(
     smallest singular value exceeds close_tol x its largest.  ``max_block``:
     the block size at which a breakdown is declared incurable.
     """
+    _unsharded(op, "two_sided_lanczos_lookahead")
     m = op.shape[0]
     dev = op.device
     rng = np.random.default_rng(seed)

@@ -76,10 +76,14 @@ class EigResult:
 
 def acceptance_inner_prod(op, X: torch.Tensor) -> torch.Tensor:
     """<(Ax/||Ax||), x>^2 per column of X, through ``op.matmat`` (the
-    stencil SpMM kernel for a stencil operator)."""
+    stencil SpMM kernel for a stencil operator).  For a row-sharded
+    operator X is this rank's rows and the sums are all-reduced."""
+    from .rows import Rows
+
+    rows = Rows(op)
     AX = op.matmat(X)
-    nrm = torch.sqrt(torch.sum(AX * AX, dim=0))
-    dots = torch.sum(AX * X, dim=0)
+    nrm = torch.sqrt(rows.sum(torch.sum(AX * AX, dim=0)))
+    dots = rows.sum(torch.sum(AX * X, dim=0))
     return (dots / torch.where(nrm > 0, nrm, 1.0)) ** 2
 
 

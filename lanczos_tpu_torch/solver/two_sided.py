@@ -40,6 +40,7 @@ import torch
 from .._util import to_numpy
 from ..ops.operators import LinearOperator
 from .arnoldi import _check_dtype
+from .rows import _unsharded
 from .lanczos import _default_dot, _resolve_dot
 from .results import EigResult, acceptance_inner_prod
 
@@ -200,6 +201,7 @@ def two_sided_lanczos(
     vectors must be masked with its ``live``.  ``compensated=True`` runs
     the scalar reductions through ``dot2_rounded``.
     """
+    _unsharded(op, "two_sided_lanczos")
     m = op.shape[0]
     if n > m:
         raise ValueError("n cannot exceed operator dimension")

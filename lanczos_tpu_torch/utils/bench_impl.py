@@ -14,11 +14,11 @@ prints one JSON line:
                (3Ddeuteron.py:95 runs use_cuda=False), timed here on the
                same matrix.
 
-On a card the SpMV is timed by CUDA graph replay (``utils/timing.py:
-graph_ms``): 50 calls captured once, their x rotating through 8 vectors
-(more than the 50 MB L2 holds, so each call reads x from memory, as in a
-solve), replays timed with CUDA events; the median over 20 replays, with
-the fastest and slowest as the spread.  On the CPU the same calls are
+On a card the SpMV is timed by CUDA graph replay
+(``utils/metrics.py:benchmark_matvec``): 50 calls captured once, their x
+rotating through vectors that outgrow the 50 MB L2 (so each call reads x
+from memory, as in a solve), replays timed with CUDA events; the median
+over 20 replays, with the fastest and slowest as the spread.  On the CPU the same calls are
 timed with the host clock.
 """
 
@@ -35,41 +35,42 @@ import torch
 __all__ = ["bench_spmv", "bench_scipy_baseline", "main"]
 
 
-def _host_ms(fn, launches: int, samples: int):
-    """Median ms per call over ``samples`` host-clock runs of ``launches``
-    calls, after one warm-up call; also returns every sample."""
+def _host_seconds(fn, launches: int, samples: int):
+    """Seconds per call in each of ``samples`` host-clock runs of
+    ``launches`` calls, after one warm-up call."""
     fn()
     per_call = []
     for _ in range(samples):
         t0 = time.perf_counter()
         for _ in range(launches):
             fn()
-        per_call.append((time.perf_counter() - t0) * 1e3 / launches)
-    return statistics.median(per_call), per_call
+        per_call.append((time.perf_counter() - t0) / launches)
+    return per_call
 
 
 def bench_spmv(n_grid: int = 160, dtype="float32", device="cuda", launches: int = 50,
                samples: int = 20):
     """Time ``StencilOperator.matvec`` of the N=n_grid deuteron Hamiltonian
-    on ``device``; returns its rates and their spread over the samples."""
+    on ``device`` (on a card by ``utils/metrics.py:benchmark_matvec``);
+    returns its rates and their spread over the samples."""
     import lanczos_tpu_torch as lt
     from lanczos_tpu_torch._util import as_torch_dtype
 
-    from .timing import graph_ms
+    from .metrics import benchmark_matvec
 
     dtype = as_torch_dtype(dtype)
     H = lt.build_regular_hamiltonian(
         n_grid, 25.0, lt.deuteron_potential_3d, stencil="27", dtype=dtype, device=device
     )
     m = H.shape[0]
-    gen = torch.Generator(device=device).manual_seed(1)
-    xs = itertools.cycle([torch.randn(m, generator=gen, dtype=dtype, device=device)
-                          for _ in range(8)])
     if H.device.type == "cuda":
-        ms, per_call = graph_ms(lambda: H.matvec(next(xs)), launches=launches, samples=samples)
+        per_s = benchmark_matvec(H, launches, samples).samples
     else:
-        ms, per_call = _host_ms(lambda: H.matvec(next(xs)), launches, samples)
-    spmv_s, best_s, worst_s = ms / 1e3, min(per_call) / 1e3, max(per_call) / 1e3
+        gen = torch.Generator(device=device).manual_seed(1)
+        xs = itertools.cycle([torch.randn(m, generator=gen, dtype=dtype, device=device)
+                              for _ in range(8)])
+        per_s = _host_seconds(lambda: H.matvec(next(xs)), launches, samples)
+    spmv_s, best_s, worst_s = statistics.median(per_s), min(per_s), max(per_s)
     bytes_per = 3 * m * H.weights.element_size()  # read x, read diag, write y
     nnz_per = 27 * m  # stencil taps, the diagonal merged into the centre tap
     return {
@@ -78,7 +79,7 @@ def bench_spmv(n_grid: int = 160, dtype="float32", device="cuda", launches: int 
         "gbps": bytes_per / spmv_s / 1e9,
         "gbps_best": bytes_per / best_s / 1e9,
         "gbps_worst": bytes_per / worst_s / 1e9,
-        "n_samples": len(per_call),
+        "n_samples": len(per_s),
         "nnz_per_s": nnz_per / spmv_s,
         "backend": H.device.type,
         "device_name": (torch.cuda.get_device_name(H.device)

@@ -30,6 +30,7 @@ import torch
 from .._util import to_numpy
 from ..ops.operators import LinearOperator
 from ..solver.arnoldi import _check_dtype, _start_vector
+from ..solver.rows import _unsharded
 from ..solver.lanczos import LanczosFactorization, _resolve_dot, _default_dot, lanczos_segment
 
 __all__ = [
@@ -123,6 +124,7 @@ def lanczos_checkpointed(
     a killed run loses at most ``every`` steps.  ``path`` ending in ``.npz``
     selects the single-file layout, anything else the incremental directory.
     """
+    _unsharded(op, "lanczos_checkpointed")
     m = op.shape[0]
     dtype = _check_dtype(op, dtype)
     dev = op.device

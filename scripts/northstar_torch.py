@@ -14,6 +14,9 @@ exactly symmetric.  Pipeline:
 2. float32 compensated thick-restart Lanczos (``solver/restart.py``) for
    k + buffer pairs down to the float32 floor, from a start vector that is
    zero on the dead slots, with per-cycle checkpoints (``--checkpoint``).
+   With ``run(mesh=...)`` this solve runs row-sharded over the ranks of a
+   ``parallel/mesh.py:RowMesh`` (the sharded CompositeV2); its vectors are
+   gathered back for the refinement, which every rank runs whole.
 3. Double-word refinement (``solver/refine.py:refine_eigenpairs_dd_hosted``):
    float64 residuals through the float32 operator's float64 copy, deflated
    CG on the float32 operator's SpMM.
@@ -97,6 +100,15 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
+def kernel_launches():
+    """Each kernel wrapper's launch count so far, by dtype."""
+    from lanczos_tpu_torch.ops import interface_kernel as ik
+    from lanczos_tpu_torch.ops import stencil_kernels as sk
+
+    return {w.__name__: {str(dt)[6:]: n for dt, n in w.launches_by_dtype.items()}
+            for w in (sk.stencil_spmv, sk.stencil_spmm, ik.apply_fused_interface)}
+
+
 def default_max_basis(kk):
     """The restart basis when ``--max-basis`` is 0: 2 kk + 30, the rule of
     ``eigsh_restarted`` itself (250 for k = 100 and the 10 buffer pairs, a
@@ -107,8 +119,9 @@ def default_max_basis(kk):
 def run(n_fine=432, box_depth=3, k=100, k_buffer=10, tol=1e-8, fp32_tol=3e-7, max_basis=0,
         n_locked=0, max_cycles=400, refine_rounds=4, col_chunk=8, min_grid_rows=4096,
         cg_steps=200, checkpoint="", checkpoint_every=10, save_vectors="", device="cuda",
-        verbose=True):
-    """The whole pipeline.  Returns (info, extra): ``info`` the JSON record,
+        verbose=True, mesh=None):
+    """The whole pipeline (the fp32 solve row-sharded over ``mesh`` when
+    given).  Returns (info, extra): ``info`` the JSON record,
     ``extra`` the reported (unshifted) eigenvalues ``lam`` (k,), their true
     residuals relative to the shifted eigenvalue ``rel_shifted`` (k,), the
     host matrix ``L``, the operator ``op`` (L + 1), and the refined pairs
@@ -164,19 +177,34 @@ def run(n_fine=432, box_depth=3, k=100, k_buffer=10, tol=1e-8, fp32_tol=3e-7, ma
     else:
         v0 = np.zeros(comp.shape[0], dtype=np.float32)
         v0[idx_map] = np.random.default_rng(99).uniform(-1, 1, size=p).astype(np.float32)
+        solve_op = comp
+        if mesh is not None:
+            from lanczos_tpu_torch.parallel import shard_operator
+
+            solve_op = shard_operator(comp, mesh)
+            v0 = solve_op.host.to_sharded(v0)
+            info["sharded_ranks"] = mesh.size
+        before = kernel_launches()
         t0 = time.perf_counter()
         res = eigsh_restarted(
-            comp, k=kk, tol=fp32_tol, which="SA", v0=v0, compensated=True,
+            solve_op, k=kk, tol=fp32_tol, which="SA", v0=v0, compensated=True,
             max_basis=max_basis, n_locked=n_locked, max_cycles=max_cycles, rr_verify=False,
             verbose=verbose, checkpoint_path=checkpoint or None,
             checkpoint_every=checkpoint_every,
         )
         _sync(device)
         info["t_solve_fp32_s"] = time.perf_counter() - t0
+        info["launches_solve"] = {
+            name: {dt: n - before[name][dt] for dt, n in by_dt.items()}
+            for name, by_dt in kernel_launches().items()}
         info["cycles"] = res.cycles
         lam32 = res.eigenvalues.cpu().numpy().astype(np.float64)
-        X64 = res.eigenvectors.double().cpu().numpy()
-        del res
+        if mesh is None:
+            X64 = res.eigenvectors.double().cpu().numpy()
+        else:  # every rank's rows, back in the level-major layout
+            X64 = solve_op.host.from_sharded(
+                mesh.all_gather(res.eigenvectors.double()).cpu().numpy())
+        del res, solve_op
     log(f"fp32 solve {info['t_solve_fp32_s']:.2f} s, {info.get('cycles')} cycles, "
         f"lam[0]={lam32[0]:.9g}")
 
