@@ -1,18 +1,20 @@
-"""The port's native (C++) lattice neighbor search, loaded with ctypes.
+"""The port's native (C++) lattice graph-builder and ELL packer, loaded
+with ctypes.
 
-Counterpart of ``lanczos_tpu/native`` for the neighbor search.  The port
+Counterpart of ``lanczos_tpu/native``.  The port
 keeps its own copy of the C++ source (``neighbor_engine.cpp``) and builds it
 with the host C++ compiler at first use into ``lanczos_tpu_torch/_build/``
 (gitignored), keyed by a hash of the source and flags.  Builders serialise
 on an ``fcntl`` lock, as the CUDA kernels do (``ops/_build.py``).  This is
 host code, not a device kernel: when no compiler is present,
 ``find_neighbors(backend="auto")`` takes the numpy path, as in the JAX
-package.
+package, and ``ops/assemble.py:ell_from_coo`` packs with numpy.
 
 Public surface:
     available()            -> bool: the engine is built and loaded
     find_neighbors_native  -> backend for models.lattice.find_neighbors
     reciprocal_mask_native -> edge reciprocity of a neighbor table
+    pack_ell_native        -> the packing loop of ops.assemble.ell_from_coo
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["available", "find_neighbors_native", "reciprocal_mask_native"]
+__all__ = ["available", "find_neighbors_native", "pack_ell_native", "reciprocal_mask_native"]
 
 _SRC = Path(__file__).resolve().with_name("neighbor_engine.cpp")
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -36,6 +38,7 @@ _FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _I64 = ctypes.POINTER(ctypes.c_int64)
 _I32 = ctypes.POINTER(ctypes.c_int32)
+_F64 = ctypes.POINTER(ctypes.c_double)
 
 
 def _build() -> Optional[Path]:
@@ -74,6 +77,9 @@ def _lib() -> Optional[ctypes.CDLL]:
     lib.reciprocal_mask.argtypes = [_I64, ctypes.c_int64, ctypes.c_int64,
                                     ctypes.POINTER(ctypes.c_uint8)]
     lib.reciprocal_mask.restype = None
+    lib.pack_ell.argtypes = [_I64, _I64, _F64, ctypes.c_int64, ctypes.c_int64,
+                             ctypes.c_int64, _I64, _F64]
+    lib.pack_ell.restype = None
     return lib
 
 
@@ -139,3 +145,31 @@ def reciprocal_mask_native(nbrs: np.ndarray) -> Optional[np.ndarray]:
     lib.reciprocal_mask(_ptr(nbrs, _I64), ctypes.c_int64(p), ctypes.c_int64(k),
                         keep.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
     return keep.astype(bool)
+
+
+def pack_ell_native(
+    rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, m: int, k: int
+) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """Row-sorted, deduplicated COO -> padded ELL ``(cols (m, k) int64,
+    vals (m, k) float64)``, short rows padded with col = row, val = 0;
+    None when the engine is unavailable.  Raises ValueError when the rows
+    are not sorted, fall outside [0, m), or one holds more than k entries."""
+    lib = _lib()
+    if lib is None:
+        return None
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    cols = np.ascontiguousarray(cols, dtype=np.int64)
+    vals = np.ascontiguousarray(vals, dtype=np.float64)
+    if not len(rows) == len(cols) == len(vals):
+        raise ValueError(f"COO arrays differ in length: {len(rows)}, {len(cols)}, {len(vals)}")
+    if len(rows):
+        if rows[0] < 0 or rows[-1] >= m or (np.diff(rows) < 0).any():
+            raise ValueError(f"COO rows must be sorted and within [0, {m})")
+        if np.bincount(rows, minlength=m).max() > k:
+            raise ValueError(f"a row holds more than k={k} entries")
+    out_cols = np.empty((m, k), dtype=np.int64)
+    out_vals = np.empty((m, k), dtype=np.float64)
+    lib.pack_ell(_ptr(rows, _I64), _ptr(cols, _I64), _ptr(vals, _F64),
+                 ctypes.c_int64(len(rows)), ctypes.c_int64(m), ctypes.c_int64(k),
+                 _ptr(out_cols, _I64), _ptr(out_vals, _F64))
+    return out_cols, out_vals

@@ -1,8 +1,9 @@
 // Native lattice graph-builder for the irregular multi-resolution lattice.
 //
-// The port's own copy of lanczos_tpu/native/neighbor_engine.cpp (the
-// neighbor search only: count_neighbors and fill_neighbors).  It is host
-// code, built with the host C++ compiler by lanczos_tpu_torch/native.
+// The port's own copy of lanczos_tpu/native/neighbor_engine.cpp: the
+// neighbor search (count_neighbors, fill_neighbors), the edge reciprocity
+// scan (reciprocal_mask) and the COO -> padded-ELL packer (pack_ell).  It is
+// host code, built with the host C++ compiler by lanczos_tpu_torch/native.
 //
 // C++ replacement for the hot host-side assembly loop of the reference
 // (the reference's Python/Irregular/IrrGrid.py:67-138 GetNearbyPoints — a
@@ -176,6 +177,30 @@ void reciprocal_mask(const int64_t* nbrs, int64_t p, int64_t k, uint8_t* keep) {
             }
             keep[base + j] = ok;
         }
+    }
+}
+
+// COO -> padded ELL: rows non-decreasing, duplicates already summed, no
+// row longer than k (the caller checks all three).  Writes the (m, k) ELL
+// with col = row / val = 0 padding: the O(nnz) inner loop of
+// ops/assemble.py:ell_from_coo without numpy's temporaries.  Columns are
+// int64, the port's EllOperator index type.
+void pack_ell(const int64_t* rows, const int64_t* cols, const double* vals,
+              int64_t nnz, int64_t m, int64_t k, int64_t* out_cols, double* out_vals) {
+    for (int64_t r = 0; r < m; ++r) {
+        for (int64_t j = 0; j < k; ++j) {
+            out_cols[r * k + j] = r;
+            out_vals[r * k + j] = 0.0;
+        }
+    }
+    int64_t pos = 0;
+    int64_t prev_row = -1;
+    for (int64_t e = 0; e < nnz; ++e) {
+        const int64_t r = rows[e];
+        pos = (r == prev_row) ? pos + 1 : 0;
+        prev_row = r;
+        out_cols[r * k + pos] = cols[e];
+        out_vals[r * k + pos] = vals[e];
     }
 }
 

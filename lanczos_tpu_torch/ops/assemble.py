@@ -68,15 +68,22 @@ def ell_from_coo(
         k = max(k, int(k_pad))
     k = max(k, 1)
 
-    # Position of each entry within its (sorted) row.
     order = np.argsort(rows, kind="stable")
     rows_s, cols_s, vals_s = rows[order], cols[order], vals[order]
-    row_starts = np.concatenate([[0], np.cumsum(counts)])
-    pos_in_row = np.arange(len(rows_s)) - row_starts[rows_s]
-    ell_cols = np.tile(np.arange(m, dtype=np.int64)[:, None], (1, k))
-    ell_vals = np.zeros((m, k), dtype=np_dtype)
-    ell_cols[rows_s, pos_in_row] = cols_s
-    ell_vals[rows_s, pos_in_row] = vals_s
+
+    from ..native import pack_ell_native
+
+    packed = pack_ell_native(rows_s, cols_s, vals_s, m, k)
+    if packed is not None:
+        ell_cols, ell_vals = packed
+    else:
+        # numpy path (no C++ compiler): each entry's position in its row.
+        row_starts = np.concatenate([[0], np.cumsum(counts)])
+        pos_in_row = np.arange(len(rows_s)) - row_starts[rows_s]
+        ell_cols = np.tile(np.arange(m, dtype=np.int64)[:, None], (1, k))
+        ell_vals = np.zeros((m, k), dtype=np_dtype)
+        ell_cols[rows_s, pos_in_row] = cols_s
+        ell_vals[rows_s, pos_in_row] = vals_s
 
     return EllOperator(
         cols=torch.as_tensor(ell_cols, device=device),

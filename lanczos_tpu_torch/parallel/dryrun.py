@@ -1,29 +1,31 @@
 """A multi-rank dry run of every sharded path on tiny shapes.
 
-    python -m lanczos_tpu_torch.parallel.dryrun 4      # 4 ranks
+    python -m lanczos_tpu_torch.parallel.dryrun 4                 # 4 NCCL ranks, 4 cards
+    python -m lanczos_tpu_torch.parallel.dryrun 4 --device cpu    # 4 gloo ranks
 
 Counterpart of ``__graft_entry__.py:dryrun_multichip``, with the same steps
 and shapes: row-sharded Lanczos on the z-slab stencil (halo exchange,
 all-reduced reductions, Ritz extraction), the all-gather ELL, the sharded
 v1 composite through ``eigs_nonsym`` and ``eigsh_restarted``, the sharded
 CompositeV2 through ``eigsh_restarted``, and the exchange volume of each
-format.  The ranks are local processes: NCCL ranks on cards when the host
-has ``n`` of them, gloo ranks on the CPU otherwise.
+format.  The ranks are local processes: NCCL ranks, one card each, unless
+the caller asks for gloo ranks on the CPU (``device="cpu"``).
 """
 
 from __future__ import annotations
 
-import sys
+import argparse
 
 import numpy as np
 import torch
 
+from .._util import DEFAULT_DEVICE
 from .launch import run_ranks
 
 __all__ = ["dryrun_multichip", "graph_laplacian_v2"]
 
 
-def graph_laplacian_v2(n_fine, dtype=torch.float32, device="cpu"):
+def graph_laplacian_v2(n_fine, dtype=torch.float32, device=DEFAULT_DEVICE):
     """The symmetric graph Laplacian + 1 of the mixed lattice (box depth 3,
     the centre box at spacing 1, the rest at 2) as a CompositeV2, with its
     idx_map and point count: the JAX dry run's and ``tests/
@@ -116,14 +118,20 @@ def _dryrun_rank(mesh, n_devices):
     }
 
 
-def dryrun_multichip(n_devices: int, device: str = "", timeout: float = 600.0) -> dict:
+def dryrun_multichip(n_devices: int, device: str = DEFAULT_DEVICE,
+                     timeout: float = 600.0) -> dict:
     """Run every sharded path once on ``n_devices`` local ranks and print
-    the exchange volumes.  ``device`` defaults to ``"cuda"`` (NCCL) when
-    the host has ``n_devices`` cards, else ``"cpu"`` (gloo).  Returns rank
-    0's report; raises if any rank fails or the ranks disagree on alpha."""
-    if not device:
+    the exchange volumes.  ``device`` defaults to ``"cuda"``: NCCL ranks,
+    one card each; a host with fewer than ``n_devices`` cards raises
+    ValueError unless the caller passes ``device="cpu"`` (gloo ranks).
+    Returns rank 0's report; raises if any rank fails or the ranks disagree
+    on alpha."""
+    if torch.device(device).type == "cuda":
         cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        device = "cuda" if 0 < n_devices <= cards else "cpu"
+        if cards < n_devices:
+            raise ValueError(f"dryrun_multichip({n_devices}) needs {n_devices} cards for its "
+                             f"NCCL ranks and this host has {cards}; pass device=\"cpu\" "
+                             "for gloo ranks on the CPU")
     reports = run_ranks(_dryrun_rank, n_devices, n_devices, device=device, timeout=timeout)
     for rep in reports[1:]:
         np.testing.assert_array_equal(rep["alpha"], reports[0]["alpha"])
@@ -141,4 +149,9 @@ def dryrun_multichip(n_devices: int, device: str = "", timeout: float = 600.0) -
 
 
 if __name__ == "__main__":
-    dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 4)
+    ap = argparse.ArgumentParser(description="a multi-rank dry run of every sharded path")
+    ap.add_argument("n_devices", type=int, nargs="?", default=4)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="cuda: NCCL ranks, one card each; cpu: gloo ranks")
+    args = ap.parse_args()
+    dryrun_multichip(args.n_devices, device=args.device)

@@ -19,6 +19,8 @@ import socket
 import time
 import traceback
 
+from .._util import DEFAULT_DEVICE
+
 __all__ = ["free_port", "run_ranks"]
 
 
@@ -47,9 +49,11 @@ def _rank_main(rank, world_size, port, device, timeout, fn, args, results):
             dist.destroy_process_group()
 
 
-def run_ranks(fn, world_size: int, *args, device: str = "cpu", timeout: float = 300.0):
+def run_ranks(fn, world_size: int, *args, device: str = DEFAULT_DEVICE,
+              timeout: float = 300.0):
     """``[fn(mesh, *args) on rank r for r in range(world_size)]``, each rank
-    a spawned process with one CPU thread.  Raises RuntimeError
+    a spawned process with one CPU thread (NCCL ranks, one card each, unless
+    ``device="cpu"`` asks for gloo ranks).  Raises RuntimeError
     with the failing rank's traceback, or TimeoutError after ``timeout``
     seconds; either way every rank is killed first."""
     ctx = mp.get_context("spawn")

@@ -162,14 +162,22 @@ def _rayleigh_ritz(C, G, lam_pre, symmetric: bool):
 
 
 def _realify(mu, Z):
-    """Real basis of the eigenvector columns: a conjugate pair (z, z*)
-    becomes (Re z, Im z); a lone near-real column takes Re z."""
+    """Real basis of the eigenvector columns of a real matrix: a conjugate
+    pair (z, z*) becomes (Re z, Im z); a real eigenvalue's column takes
+    Re z.
+
+    LAPACK returns a real eigenvalue with an imaginary part of exactly 0
+    and a complex one beside its conjugate, so any non-zero imaginary part
+    marks a pair, however small.  (A pair of a near-degenerate real
+    eigenvalue can have |Im mu| ~ 1e-14: taking Re z for both of its
+    columns, as the JAX package does below 1e-12 |mu|, makes them the same
+    vector and the refinement loses a copy.)"""
     Zr = np.empty(Z.shape, np.float64)
     j, k = 0, Z.shape[1]
     while j < k:
         if (
             j + 1 < k
-            and abs(mu[j].imag) > 1e-12 * max(1.0, abs(mu[j].real))
+            and mu[j].imag != 0.0
             and abs(mu[j + 1].conj() - mu[j]) <= 1e-8 * max(1.0, abs(mu[j]))
         ):
             Zr[:, j], Zr[:, j + 1] = Z[:, j].real, Z[:, j].imag

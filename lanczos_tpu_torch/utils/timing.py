@@ -10,15 +10,28 @@
   ``fill_`` the same way to read that floor).
 
 Whatever a call reads that changes from call to call (a rotating input) is
-fixed when the graph is captured.  The module imports torch only, so a
-script can load it from a file without importing the package.
+fixed when the graph is captured.  :func:`card_label` names the card a
+number was taken on.  The module imports torch only, so a script can load
+it from a file without importing the package.
 """
 
 import statistics
+import subprocess
 
 import torch
 
-__all__ = ["eager_ms", "graph_ms"]
+__all__ = ["card_label", "eager_ms", "graph_ms"]
+
+
+def card_label(device="cuda") -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them (the first card's line),
+    or ``"cpu"`` for a CPU ``device``."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
 
 
 def eager_ms(fn, launches=100, samples=5):

@@ -132,6 +132,7 @@ def run(n_fine=432, box_depth=3, k=100, k_buffer=10, tol=1e-8, fp32_tol=3e-7, ma
     from lanczos_tpu_torch.ops.composite2 import build_composite_v2
     from lanczos_tpu_torch.solver.refine import refine_eigenpairs_dd_hosted
     from lanczos_tpu_torch.solver.restart import eigsh_restarted
+    from lanczos_tpu_torch.utils.timing import card_label
 
     def log(msg):
         if verbose:
@@ -142,7 +143,7 @@ def run(n_fine=432, box_depth=3, k=100, k_buffer=10, tol=1e-8, fp32_tol=3e-7, ma
             "box_depth": box_depth, "k": k, "k_buffer": k_buffer, "tol": tol,
             "dtype": "float32 solve + float64 refinement", "compensated": True,
             "device": torch.cuda.get_device_name() if torch.device(device).type == "cuda"
-            else "cpu"}
+            else "cpu", "card": card_label(device)}
     log(f"building lattice N={n_fine} ...")
     lat, nbrs, rels, weights, deg, times = build_graph_laplacian_rows(n_fine, box_depth)
     p = lat.num_points
@@ -307,11 +308,7 @@ def main():
     print(json.dumps({key: info[key] for key in (
         "num_points", "nnz", "t_solve_s", "refine_completed", "true_residual_max",
         "pairs_below_1e-8")}))
-    if args.device == "cuda":
-        import subprocess
-
-        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True, text=True).stdout)
+    print(info["card"])
     return 0 if info["refine_completed"] else 1
 
 

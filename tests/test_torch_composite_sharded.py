@@ -68,7 +68,7 @@ def _jax_comp(n):
 @pytest.fixture(scope="module")
 def pairs():
     """{n: (JAX CompositeV2, port CompositeV2)}."""
-    return {n: (_jax_comp(n), graph_laplacian_v2(n, dtype=torch.float64)[0]) for n in FRAC}
+    return {n: (_jax_comp(n), graph_laplacian_v2(n, dtype=torch.float64, device="cpu")[0]) for n in FRAC}
 
 
 @pytest.fixture(scope="module")
@@ -85,7 +85,7 @@ def case(pairs):
 
 @pytest.fixture(scope="module")
 def ranks(case):
-    return run_ranks(test_torch_rank_work.composite_v2, D, case, timeout=240.0)
+    return run_ranks(test_torch_rank_work.composite_v2, D, case, device="cpu", timeout=240.0)
 
 
 @pytest.mark.parametrize("n", sorted(FRAC))

@@ -124,7 +124,7 @@ def case(small):
 
 @pytest.fixture(scope="module")
 def ranks(case):
-    return run_ranks(test_torch_rank_work.composite_v1, D, case, timeout=240.0)
+    return run_ranks(test_torch_rank_work.composite_v1, D, case, device="cpu", timeout=240.0)
 
 
 def test_shard_composite_equals_jax(small):

@@ -272,3 +272,24 @@ def test_refine_fp64_host(nonsym_case):
     w = scipy.linalg.eig(A64.toarray(), right=False)
     w = np.sort(w.real[np.abs(w.imag) < 1e-8])
     assert max(np.abs(w - v).min() for v in lam) <= 1e-9
+
+
+def test_fp64_host_refinement_keeps_a_near_real_pair_apart():
+    """A Rayleigh-Ritz step whose eigenvalues come as a conjugate pair with
+    |Im mu| ~ 1e-14 |mu| (a near-degenerate real eigenvalue under
+    rounding) keeps two independent columns, (Re z, Im z).  Taking Re z for
+    both made them one vector, and the N=120 irregular refinement lost a
+    copy of the doubled 2.5735733.  Here A holds lam = 2 +- 1e-14 i in its
+    first two coordinates; tol=0 forces the Rayleigh-Ritz rounds."""
+    n = 40
+    rng = np.random.default_rng(3)
+    A = np.diag(np.concatenate([[2.0, 2.0], np.linspace(3.0, 9.0, n - 2)]))
+    A[0, 1], A[1, 0] = 1e-14, -1e-14
+    X0 = np.eye(n)[:, :3] + 1e-6 * rng.standard_normal((n, 3))
+    lam, X, rel = tref.refine_eigenpairs_fp64_host(scipy.sparse.csr_matrix(A), np.array(
+        [2.0, 2.0, 3.0]), X0, tol=0.0, max_rounds=3, cg_steps=50)
+    cos = abs(X[:, 0] @ X[:, 1]) / (np.linalg.norm(X[:, 0]) * np.linalg.norm(X[:, 1]))
+    assert cos < 0.5, cos  # one vector twice has cos = 1
+    assert np.linalg.svd(X, compute_uv=False).min() > 0.1
+    np.testing.assert_allclose(lam, [2.0, 2.0, 3.0], atol=1e-12)
+    assert rel.max() < 1e-10

@@ -79,7 +79,7 @@ def case(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def ranks(case):
-    return run_ranks(test_torch_rank_work.distributed, D, case,
+    return run_ranks(test_torch_rank_work.distributed, D, case, device="cpu",
                      timeout=WORLD_TIMEOUT)
 
 

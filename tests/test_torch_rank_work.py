@@ -102,7 +102,7 @@ def composite_v2(mesh, case):
     n=48 lattices, exchange counts, and the restarted solve at n=24."""
     out = {}
     for n, frac in ((24, 10.0), (48, 0.6)):
-        comp, _, _ = graph_laplacian_v2(n, dtype=torch.float64)
+        comp, _, _ = graph_laplacian_v2(n, dtype=torch.float64, device="cpu")
         op = shard_composite_v2(comp, mesh, degenerate_frac=frac)
         x = _rows(op, op.host.to_sharded(case[f"x{n}"]))
         out[n] = {"y": _np(op.matvec(x)), "runs": op.support_runs,
