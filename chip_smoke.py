@@ -48,7 +48,9 @@ its work per call outlasts the kernel) and the launch floor (a one-element
    max_basis=300, tol=1e-4)`` on the CompositeV2 in fp32, then fp64, with
    the kernels' launch counts, held against golden eigenvalues the JAX
    package computed in fp64 (``golden_eigs_irregular_n120.json``); the
-   distance to ``IRREGULAR_r04.json`` is printed, not held.
+   distance to ``IRREGULAR_r04.json`` is printed, not held.  On the card
+   every Krylov–Schur cycle after the first replays a CUDA graph
+   (``solver/graphs.py``), and the launch counts include the replays.
 10. ``two_sided_lanczos`` at N=60 in fp64 (n=250) on the CompositeV2 and
     its transpose, against the N=60 golden values.
 
@@ -82,7 +84,10 @@ The north-star path (compensated reductions, thick restart, refinement):
     3's tolerances); the device busy share (``torch.profiler``) of one
     restart cycle and of one refinement round; and the kernel, plain and
     cuSPARSE times of the interface kernel (fp32, fp64), the SpMV (fp32,
-    fp64) and the SpMM at b=8 (fp32) on the lattice's level grids.
+    fp64) and the SpMM at b=8 (fp32) on the lattice's level grids.  The
+    restart cycles run as CUDA graphs; the busy share of one cycle is taken
+    captured and eager (``graphs.eager()``), and the fp32 solve is run
+    again with eager cycles beside the pipeline's captured one.
 16. ``eigs_nonsym(compensated=True, k=8)`` at N=60 (fp32) and
     ``refine_eigenpairs_dd_nonsym`` of its pairs, against the N=60 golden;
     every refined pair of a complete cluster (one that does not hold the
@@ -131,8 +136,9 @@ group the script starts itself (the card cannot hold two NCCL ranks):
     ``eigsh_restarted`` on the sharded operator, held to phase 14's scipy
     values and residual gates, its launches counted over that solve alone.
 23. The v1 ``CompositeOperator`` at N=120 (``eigs_nonsym(k=8,
-    max_basis=300, tol=1e-4)``, fp32), unsharded and through
-    ``shard_composite``, each held to the N=120 golden as phase 9 holds it;
+    max_basis=300, tol=1e-4)``, fp32), unsharded (captured cycles, then
+    eager ones) and through ``shard_composite``, each held to the N=120
+    golden as phase 9 holds it;
     ``lanczos_sharded`` on ``shard_operator`` and ``shard_ell_halo`` of the
     N=60 ELL against the unsharded recurrence (1e-5).
 
@@ -149,11 +155,31 @@ native ELL packer):
     two within 1e-8; the N=60 fp64 ELL assembly through the native packer
     equal to the one through numpy, with both walls.
 
+The restart cycles as CUDA graphs (``lanczos_tpu_torch/solver/graphs.py``):
+
+25. Phase 9's N=120 solve in fp32 and fp64 through the captured cycles and
+    through the eager body (``graphs.eager()``) from the same v0, in turns
+    (captured, eager, eager, captured): walls, peak memory, graphs captured
+    and their capture time, replays, the device busy share of a whole
+    solve and of one cycle (the second cycle's device time over the wall
+    of a replayed cycle) with the interface kernel's and the SpMV's device
+    time a launch in it, and the largest
+    |diff| of the eigenvalues and of every cycle's B between the two paths
+    and between two runs of each.  Fails if a solve captures more graphs
+    than it has distinct (l, m), if a cycle after the first does not
+    replay, or if the captured results miss phase 9's golden check; then
+    one level stencil's weights are scaled in place by 1.01: the captured
+    solve of the changed operator is held to its eager solve and must have
+    left the old spectrum, and one ``CycleGraphs`` across such a change
+    must run an eager cycle and capture anew, its replays equal to the
+    changed operator's matvec.
+
 The line before the last is a JSON object of the kernels (with their
 sharded launch counts and slab times); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import itertools
 import json
 import os
@@ -202,6 +228,13 @@ def launch_floor():
     ms, _ = graph_ms(lambda: buf.fill_(1.0))
     print(f"  launch floor (graph replay of a one-element fill_): {ms:.5f} ms")
     return ms
+
+
+def card_label():
+    """``nvidia-smi``'s name and power limit of the card."""
+    from lanczos_tpu_torch.utils.timing import card_label as label
+
+    return label()
 
 
 def gershgorin_norm(op):
@@ -868,6 +901,7 @@ def phase_irregular_flagship(lt, host):
     from lanczos_tpu_torch import native
     from lanczos_tpu_torch.ops import interface_kernel as ik
     from lanczos_tpu_torch.ops import stencil_kernels as sk
+    from lanczos_tpu_torch.solver import graphs
 
     print("== irregular flagship: N=120, box depth 3, eigs_nonsym(k=8, max_basis=300, tol=1e-4)")
     # The anchor is the JAX package's fp64 solve of today's operator
@@ -900,6 +934,7 @@ def phase_irregular_flagship(lt, host):
         ik.apply_fused_interface.launches = 0
         sk.stencil_spmv.launches = 0
         sk.stencil_spmm.launches = 0
+        graphs.reset_stats()
         t0 = time.perf_counter()
         res = lt.eigs_nonsym(op, k=k, max_basis=basis, tol=tol, v0=v0)
         torch.cuda.synchronize()
@@ -907,9 +942,11 @@ def phase_irregular_flagship(lt, host):
         launches = (ik.apply_fused_interface.launches, sk.stencil_spmv.launches,
                     sk.stencil_spmm.launches)
         peak = torch.cuda.max_memory_allocated()
+        st = graphs.stats
         print(f"  {str(dtype)[6:]}: wall {wall:.3f} s, peak device memory {peak / 2**30:.3f} GiB, "
               f"launches apply_fused_interface {launches[0]} stencil_spmv {launches[1]} "
-              f"stencil_spmm {launches[2]}")
+              f"stencil_spmm {launches[2]} (graph replays included); {len(st['cycles'])} "
+              f"cycles, graphs captured {st['captures']}, replays {st['replays']}")
         print(res.summary(print_nr=k))
         vals, resid = res.eigenvalues.cpu().numpy(), res.residuals.cpu().numpy()
         check(tuple(res.eigenvectors.shape) == (op.shape[0], k), "irregular flagship shapes")
@@ -929,6 +966,206 @@ def phase_irregular_flagship(lt, host):
         del op, res
         torch.cuda.empty_cache()
     return runs[torch.float32]
+
+
+def solve_record(lt, op, v0, **kw):
+    """eigs_nonsym(op, v0=v0, **kw) with its wall, peak device memory, the
+    host copy of every cycle's Rayleigh quotient B[:m, :m] (a spy on the
+    Schur step), the graph counts of the solve and its cycles' clock
+    (cycle_clock; the device synchronized around each cycle)."""
+    import importlib
+
+    from lanczos_tpu_torch.solver import graphs
+
+    # The module, not the function that lanczos_tpu_torch.solver exports
+    # under the same name.
+    arnoldi = importlib.import_module("lanczos_tpu_torch.solver.arnoldi")
+    quotients = []
+    schur = arnoldi._schur_sort_select
+
+    def spy(Bm, which, k):
+        quotients.append(Bm.copy())
+        return schur(Bm, which, k)
+
+    graphs.reset_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    arnoldi._schur_sort_select = spy
+    try:
+        with cycle_clock() as marks:
+            t0 = time.perf_counter()
+            res = lt.eigs_nonsym(op, v0=v0, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        arnoldi._schur_sort_select = schur
+    return dict(res=res, wall=wall, peak=torch.cuda.max_memory_allocated(), B=quotients,
+                stats=dict(graphs.stats), marks=marks)
+
+
+def max_diff(a, b):
+    """Largest |a - b| over the cycles both runs have, and whether they had
+    as many."""
+    n = min(len(a), len(b))
+    return max((float(np.abs(x - y).max()) for x, y in zip(a[:n], b[:n])), default=0.0), \
+        len(a) == len(b)
+
+
+def phase_graph_cycles(lt, host):
+    """Phase 25: the N=120 CompositeV2 solve of phase 9 through the captured
+    cycles and through the eager body (``graphs.eager()``) from the same
+    v0, fp32 and fp64: walls, device busy shares of a whole solve and of
+    one cycle, captures, replays, peak memory, the largest |diff| of the
+    eigenvalues and of every cycle's B between the two (and between two
+    runs of each); the interface kernel's device time a launch inside a
+    replayed cycle; a weight change between two solves."""
+    from lanczos_tpu_torch.solver import graphs
+
+    print("== captured restart cycles: N=120 eigs_nonsym(k=8, max_basis=300, tol=1e-4) on the "
+          f"CompositeV2, captured against eager, on {card_label()}")
+    golden = load_golden(120)
+    lat, _, norms = host["N=120"]
+    kw = dict(k=8, max_basis=300, tol=1e-4)
+    kernels = ("interface_kernel", "spmv_kernel")
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
+        eps = float(torch.finfo(dtype).eps)
+        op, idx_map = lt.assemble_irregular_hamiltonian_composite2(
+            lat, lt.deuteron_potential_3d, dtype=dtype, device="cuda")
+        v0 = lattice_start(op, idx_map, lat.num_points, 99)
+        runs = {"captured": [], "eager": []}
+        for mode in ("captured", "eager", "eager", "captured"):
+            with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+                runs[mode].append(solve_record(lt, op, v0, **kw))
+        cycle_s = {}
+        for mode, rs in runs.items():
+            st = rs[0]["stats"]
+            walls = ", ".join(f"{r['wall']:.3f}" for r in rs)
+            marks = [m for r in rs for m in r["marks"]]
+            clock = "; ".join(f"{k} {', '.join(f'{e - s:.3f}' for kk, s, e in marks if kk == k)}"
+                              for k in ("eager", "capture", "replay", "plain")
+                              if any(kk == k for kk, _, _ in marks))
+            kind = "replay" if mode == "captured" else "plain"
+            cycle_s[mode] = [cycle_walls(r["marks"], kind) for r in rs]
+            print(f"  {name} {mode}: walls {walls} s, {len(st['cycles'])} cycles "
+                  f"(l = {[c[1] for c in st['cycles']]}), graphs captured {st['captures']} in "
+                  f"{st['capture_s']:.3f} s, replays {st['replays']}, peak device memory "
+                  f"{max(r['peak'] for r in rs) / 2**30:.3f} GiB; cycle walls (s) {clock}")
+        for r in runs["captured"]:
+            st = r["stats"]
+            distinct = len(set(st["cycles"]))
+            check(st["captures"] <= distinct,
+                  f"{name}: {st['captures']} graphs captured for {distinct} distinct (l, m)")
+            check(st["captures"] == len(set(st["cycles"][1:]))
+                  and st["replays"] == len(st["cycles"]) - 1 and st["eager"] == 1,
+                  f"{name}: not every cycle after the first was a replay: {st}")
+        for r in runs["eager"]:
+            check(r["stats"]["captures"] == r["stats"]["replays"] == 0,
+                  f"{name}: the eager solve captured or replayed a graph")
+        diffs = {}
+        for label, a, b in (("captured - eager", runs["captured"][0], runs["eager"][0]),
+                            ("eager - eager", runs["eager"][0], runs["eager"][1]),
+                            ("captured - captured", runs["captured"][0], runs["captured"][1])):
+            d_val = float(np.abs(a["res"].eigenvalues.cpu().numpy()
+                                 - b["res"].eigenvalues.cpu().numpy()).max())
+            d_b, same = max_diff(a["B"], b["B"])
+            diffs[label] = dict(eigenvalues=d_val, B=d_b, same_cycles=same)
+            print(f"  {name} {label}: max |diff| eigenvalues {d_val:.3e}, B {d_b:.3e} over "
+                  f"{min(len(a['B']), len(b['B']))} cycles{'' if same else ' (cycle counts differ)'}")
+        res = runs["captured"][0]["res"]
+        check(bool(torch.isfinite(res.eigenvectors).all()), f"{name}: non-finite eigenvectors")
+        check_against(f"N=120 {name} captured vs lanczos_tpu fp64", res.eigenvalues.cpu().numpy(),
+                      res.residuals.cpu().numpy(), golden, eps, norms, kw["tol"])
+
+        busy = {}
+        for mode in ("captured", "eager"):
+            with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+                pwall, dev = busy_share(lambda: lt.eigs_nonsym(op, v0=v0, **kw))
+                cyc_dev, per_kernel = cycle_device(
+                    lambda c: lt.eigs_nonsym(op, v0=v0, max_cycles=c, **kw), 1, kernels)
+            cyc_wall = float(np.median([o for _, o in cycle_s[mode] if o is not None]))
+            busy[mode] = dict(solve_profiled_wall_s=pwall, solve_device_busy_s=dev,
+                              cycle_wall_s=cyc_wall, cycle_device_busy_s=cyc_dev,
+                              cycle_kernels=per_kernel)
+            per = ", ".join(f"{k} {n} launches, {t * 1e6 / max(n, 1):.2f} us each"
+                            for k, (n, t) in per_kernel.items())
+            print(f"  {name} {mode}: whole solve under the profiler {pwall:.3f} s, device busy "
+                  f"{dev:.3f} s ({dev / pwall:.1%}); one cycle after the first "
+                  f"{'replayed ' if mode == 'captured' else ''}(with the host work to the next) "
+                  f"{cyc_wall:.3f} s unprofiled, its device time {cyc_dev:.3f} s "
+                  f"({cyc_dev / cyc_wall:.1%}); in the second cycle {per}")
+        out[name] = dict(walls={m: [r["wall"] for r in rs] for m, rs in runs.items()},
+                         peak_gib={m: max(r["peak"] for r in rs) / 2**30
+                                   for m, rs in runs.items()},
+                         stats={k: v for k, v in runs["captured"][0]["stats"].items()
+                                if k != "cycles"},
+                         cycles=len(runs["captured"][0]["stats"]["cycles"]), diffs=diffs,
+                         busy=busy)
+        if dtype == torch.float32:
+            out[name]["weight_change"] = weight_change(lt, op, v0, kw, runs, norms)
+        del op, runs
+        torch.cuda.empty_cache()
+    print(f"  record: {json.dumps(out)}")
+    return out
+
+
+def weight_change(lt, op, v0, kw, runs, norms):
+    """Scale one level stencil's weights in place between two solves: the
+    captured solve of the changed operator is held to its eager solve and
+    must have left the old spectrum; then one CycleGraphs across a change,
+    as within a solver call, must run an eager cycle and capture anew."""
+    from lanczos_tpu_torch.solver import graphs
+
+    dtype = op.dtype
+    name, eps = str(dtype)[6:], float(torch.finfo(dtype).eps)
+    # A weight change between two solves: a new capture, held to the
+    # eager solve of the changed operator and away from the old values.
+    scale = 1.01
+    level = op.level_ops[0]
+    level.weights.mul_(scale)
+    changed = solve_record(lt, op, v0, **kw)
+    with graphs.eager():
+        ref = solve_record(lt, op, v0, **kw)
+    new_vals = changed["res"].eigenvalues.cpu().numpy()
+    ref_gold = dict(eigenvalues=ref["res"].eigenvalues.cpu().numpy().tolist(),
+                    residuals=ref["res"].residuals.cpu().numpy().tolist())
+    worst, _ = check_against(
+        f"N=120 {name}, level 0 weights x{scale}: captured vs eager", new_vals,
+        changed["res"].residuals.cpu().numpy(), ref_gold, eps,
+        tuple(scale * n for n in norms), kw["tol"])
+    moved = abs(float(new_vals[0]) - float(runs["eager"][0]["res"].eigenvalues[0]))
+    print(f"  {name} after the weight change: captures {changed['stats']['captures']}, "
+          f"replays {changed['stats']['replays']}; ground state moved {moved:.4e} MeV; "
+          f"captured - eager {worst:.3e}")
+    check(changed["stats"]["captures"] >= 1, "no capture after the weight change")
+    check(moved > 100 * worst, "the solve after the weight change kept the old spectrum")
+    # One CycleGraphs across the change, as within a solver call.
+    x = torch.as_tensor(v0, dtype=dtype, device="cuda")
+    y = torch.empty_like(x)
+
+    def body(x, y):
+        y.copy_(op.matvec(x))
+        return y
+
+    graphs.reset_stats()
+    cg = graphs.CycleGraphs(op)
+    got = []
+    for factor in (1.0, 1.0, 1.0, 1.0 / scale, 1.0, 1.0):
+        if factor != 1.0:
+            level.weights.mul_(factor)
+        got.append((cg.run(("matvec",), body, x, y).clone(), op.matvec(x)))
+    st = graphs.stats
+    d = max(float((a - b).abs().max()) for a, b in got)
+    print(f"  one CycleGraphs across a weight change: eager {st['eager']}, captures "
+          f"{st['captures']}, replays {st['replays']}; max |replay - eager matvec| {d:.3e}")
+    check((st["eager"], st["captures"], st["replays"]) == (2, 2, 4),
+          f"a weight change did not force an eager cycle and a new capture: {st}")
+    # The ELL tail's index_add_ sums in an order that changes from run to
+    # run; a replay of the old weights would be off by the 1% change.
+    check(d <= 2e-5 * float(got[-1][1].abs().max()),
+          "a replay after a weight change is off the changed operator's matvec")
+    return dict(ground_state_moved=moved, captured_minus_eager=worst, replay_max_abs=d)
 
 
 def phase_two_sided(lt, ops, host):
@@ -1287,11 +1524,13 @@ def phase_northstar(n_fine):
     return info, max_abs, extra["op"]
 
 
-def busy_share(fn):
+def busy_share(fn, kernels=()):
     """(profiled wall s, device busy s) of one call of ``fn`` under
     ``torch.profiler``: the kernels' and copies' own device time.  Only the
     device activity is traced: a refinement round runs ~10^5 host ops, and
-    their trace takes tens of GB of host memory."""
+    their trace takes tens of GB of host memory.  With ``kernels`` (names
+    to look for in the profiler's kernel names), a third item: {name:
+    (launches, device s)}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1301,20 +1540,80 @@ def busy_share(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type != DeviceType.CPU)
-    return wall, busy_us / 1e6
+    events = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    if not kernels:
+        return wall, busy
+    found = {name: (sum(e.count for e in events if name in e.key),
+                    sum(e.self_device_time_total for e in events if name in e.key) / 1e6)
+             for name in kernels}
+    return wall, busy, found
+
+
+def cycle_device(solve, cycles, kernels=()):
+    """Device time of one cycle of a restarted solve: ``solve(c)`` runs c
+    cycles, and the cycle is a run of ``cycles + 1`` less a run of
+    ``cycles`` from the same start, both under the profiler.  (Cycle 1 of
+    a capturing solve is its capture, which runs nothing on the device,
+    and the graph's first replay.)  Returns (device s, {kernel: (launches,
+    device s)})."""
+    (_, b0, k0), (_, b1, k1) = (busy_share(lambda c=c: solve(c), kernels or ("_",))
+                                for c in (cycles, cycles + 1))
+    return b1 - b0, {n: (k1[n][0] - k0[n][0], k1[n][1] - k0[n][1]) for n in kernels}
+
+
+@contextlib.contextmanager
+def cycle_clock():
+    """Time every cycle that a solve runs through ``CycleGraphs.run``, the
+    device synchronized before and after it: yields a list that gets one
+    (kind, start s, end s) a cycle on the host clock, kind "eager" (the
+    first cycle of a capturing solve), "capture" (a capture and its first
+    replay), "replay", or "plain" (``graphs.eager()``)."""
+    from lanczos_tpu_torch.solver import graphs
+
+    run = graphs.CycleGraphs.run
+    marks = []
+    names = ("eager", "captures", "replays")
+
+    def timed(self, static, body, *args):
+        before = [graphs.stats[n] for n in names]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(self, static, body, *args)
+        torch.cuda.synchronize()
+        e, c, r = (graphs.stats[n] - b for n, b in zip(names, before))
+        marks.append(("eager" if e else "capture" if c else "replay" if r else "plain", t0,
+                      time.perf_counter()))
+        return out
+
+    graphs.CycleGraphs.run = timed
+    try:
+        yield marks
+    finally:
+        graphs.CycleGraphs.run = run
+
+
+def cycle_walls(marks, kind):
+    """Median (cycle s, cycle and the host work up to the next cycle s) of
+    the cycles of ``kind`` after the first cycle of a solve, each followed
+    by another cycle (the last one's host work is the verification)."""
+    inner = [e - s for (k, s, e), _ in zip(marks[1:], marks[2:]) if k == kind]
+    outer = [s1 - s for (k, s, _), (_, s1, _) in zip(marks[1:], marks[2:]) if k == kind]
+    return (float(np.median(inner)), float(np.median(outer))) if inner else (None, None)
 
 
 def northstar_busy_shares(info, extra):
-    """Device busy share of one restart cycle and of one refinement round;
-    the cycle is also timed without the profiler (the round, ~9 s, only
-    under it).  The cycle is the second of a
-    run: a two-cycle run less a one-cycle run from the same start (m - l
-    steps from the locked block, the host eigh of the arrowhead and the
-    Ritz rotation).  The round is ``max_rounds=1, tol=0``: a residual sweep,
-    the Rayleigh-Ritz rotation, the deflated CG of every chunk, and the
-    closing residual sweep."""
+    """Device busy share of one restart cycle, captured (the replay of a
+    CUDA graph) and eager (``graphs.eager()``), and of one refinement
+    round (under the profiler); the fp32 solve again with eager cycles,
+    beside the pipeline's captured one.  A cycle is m - l steps from the
+    locked block, the host eigh of the arrowhead and the Ritz rotation: its
+    device time is the second cycle of a run (cycle_device), its wall the
+    median of cycles 2 and 3 of a 5-cycle run (cycle 0 from the start
+    vector, cycle 1 the capture of l = n_locked; cycle_clock).  The round is
+    ``max_rounds=1, tol=0``: a residual sweep, the Rayleigh-Ritz rotation,
+    the deflated CG of every chunk, and the closing residual sweep."""
+    from lanczos_tpu_torch.solver import graphs
     from lanczos_tpu_torch.solver.refine import refine_eigenpairs_dd_hosted
     from lanczos_tpu_torch.solver.restart import eigsh_restarted
 
@@ -1325,15 +1624,17 @@ def northstar_busy_shares(info, extra):
     kw = dict(k=kk, tol=3e-7, v0=v0, compensated=True, max_basis=info["max_basis"],
               n_locked=info["n_locked"], rr_verify=False)
 
-    def timed(fn):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0, *busy_share(fn))
-
     busy_share(lambda: op.matvec(torch.as_tensor(v0, device="cuda")))  # the profiler's start-up
-    runs = [timed(lambda c=c: eigsh_restarted(op, max_cycles=c, **kw)) for c in (1, 2)]
-    out = {"restart_cycle": tuple(b - a for a, b in zip(*runs))}
+    out, peaks = {}, {}
+    for mode, kind in (("captured", "replay"), ("eager", "plain")):
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            torch.cuda.reset_peak_memory_stats()
+            with cycle_clock() as marks:
+                eigsh_restarted(op, max_cycles=5, **kw)
+            peaks[mode] = torch.cuda.max_memory_allocated()
+            busy, _ = cycle_device(lambda c: eigsh_restarted(op, max_cycles=c, **kw), 1)
+        _, wall = cycle_walls(marks, kind)
+        out[f"restart_cycle_{mode}"] = (wall, None, busy)
     lam, X = extra["lam_shifted"], extra["X64"]
 
     def refine_round():
@@ -1342,12 +1643,28 @@ def northstar_busy_shares(info, extra):
 
     out["refine_round"] = (None, *busy_share(refine_round))
     for name, (wall, pwall, busy) in out.items():
-        unprofiled = (f"{busy / wall:.1%} of the unprofiled wall {wall:.3f} s" if wall
-                      else "not timed unprofiled")
+        if pwall is None:  # a cycle: its device time against its unprofiled wall
+            print(f"  {name}: {wall:.3f} s (the cycle and the host work to the next), device "
+                  f"busy {busy:.3f} s ({busy / wall:.1%})")
+            continue
         print(f"  {name}: under the profiler {pwall:.3f} s with the device busy {busy:.3f} s "
-              f"({busy / pwall:.1%} of the profiled wall; {unprofiled})")
-    return {name: dict(wall_s=w, profiled_wall_s=p, device_busy_s=b)
-            for name, (w, p, b) in out.items()}
+              f"({busy / pwall:.1%} of the profiled wall; not timed unprofiled)")
+    print(f"  peak device memory of a 5-cycle solve: captured {peaks['captured'] / 2**30:.3f} "
+          f"GiB, eager {peaks['eager'] / 2**30:.3f} GiB")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with graphs.eager():
+        res = eigsh_restarted(op, max_cycles=400, **kw)
+    torch.cuda.synchronize()
+    eager_solve = time.perf_counter() - t0
+    print(f"  fp32 solve: captured (the pipeline's) {info['t_solve_fp32_s']:.3f} s, "
+          f"{info['cycles']} cycles; eager {eager_solve:.3f} s, {res.cycles} cycles; "
+          f"{card_label()}")
+    shares = {name: dict(wall_s=w, profiled_wall_s=p, device_busy_s=b)
+              for name, (w, p, b) in out.items()}
+    shares["fp32_solve_eager_s"] = eager_solve
+    shares["peak_3_cycles_gib"] = {k: v / 2**30 for k, v in peaks.items()}
+    return shares
 
 
 def check_operator_kernels(op, label):
@@ -1973,6 +2290,7 @@ def phase_composite_v1(lt, mesh, host):
     and shard_ell_halo of the N=60 ELL against the unsharded recurrence."""
     from lanczos_tpu_torch.ops.composite import shard_composite
     from lanczos_tpu_torch.parallel import lanczos_sharded, shard_ell_halo, shard_operator
+    from lanczos_tpu_torch.solver import graphs
 
     print("== v1 CompositeOperator at N=120 (fp32): eigs_nonsym(k=8, max_basis=300, tol=1e-4), "
           f"unsharded and sharded over {mesh}, vs lanczos_tpu fp64 golden")
@@ -1988,13 +2306,24 @@ def phase_composite_v1(lt, mesh, host):
     v_lat = np.random.default_rng(99).uniform(-1.0, 1.0, lat.num_points)
     sc = shard_composite(comp, mesh.size)
     out = {}
+    # The unsharded solve runs its cycles as CUDA graphs, and again with
+    # the eager body; a sharded operator's cycles are always eager.
     for label, op, v0 in (("unsharded", comp, v_lat[perm]),
+                          ("unsharded, eager cycles", comp, v_lat[perm]),
                           ("shard_composite", sc.as_operator(mesh), sc.to_sharded(v_lat[perm]))):
         reset_launches()
+        graphs.reset_stats()
         t0 = time.perf_counter()
-        res = lt.eigs_nonsym(op, k=8, max_basis=300, tol=1e-4, v0=v0)
+        with graphs.eager() if "eager" in label else contextlib.nullcontext():
+            res = lt.eigs_nonsym(op, k=8, max_basis=300, tol=1e-4, v0=v0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        st = graphs.stats
+        print(f"  {label}: {len(st['cycles'])} cycles, graphs captured {st['captures']} in "
+              f"{st['capture_s']:.3f} s, replays {st['replays']}")
+        if label == "unsharded":
+            check(st["replays"] == len(st["cycles"]) - 1,
+                  "the v1 composite's cycles after the first did not all replay a graph")
         vals, resid = res.eigenvalues.cpu().numpy(), res.residuals.cpu().numpy()
         print(f"  {label}: wall {wall:.3f} s, launches {json.dumps(read_launches())}")
         check(bool(torch.isfinite(res.eigenvectors).all()) and np.isfinite(vals).all(),
@@ -2176,6 +2505,7 @@ def main():
                                              copy_gbs, floor_ms),
         23: lambda: phase_composite_v1(lt, mesh, host),
         24: lambda: phase_tools(lt, n60),
+        25: lambda: phase_graph_cycles(lt, host),
     }
     results = {}
     import torch.distributed as dist

@@ -69,7 +69,9 @@ def _splitter(dtype) -> float:
 
 def two_prod(a, b):
     """Dekker's exact multiplication: a * b = p + e, exactly (17 flops, no FMA)."""
-    c = torch.tensor(_splitter(a.dtype), dtype=a.dtype, device=a.device)
+    # A Python number, not a tensor made on the device: that would be a
+    # host-to-device copy, which a CUDA graph's capture refuses.
+    c = _splitter(a.dtype)
     p = a * b
     a_big = c * a
     a_hi = a_big - (a_big - a)

@@ -19,6 +19,11 @@ GEMV pairs per pass); the JAX package multiplies by the whole zero-padded
 basis, whose zero rows contribute exactly 0.  The Schur and eig of the small
 projected matrix run on the host in float64 (numpy/scipy), as in JAX.
 
+``eigs_nonsym``'s cycle is the counterpart of ``_ks_cycle_jit``: on a card
+it runs as a CUDA graph (``solver/graphs.py``), so ``V``, ``B`` and the
+breakdown counter are buffers of fixed address for the whole solve, which
+the cycle, the Schur rotation and the reset of ``B`` update in place.
+
 A CompositeV2 start vector must be multiplied by the operator's ``live``
 mask: the dead slots carry an exact eigenvalue 0 (ops/composite2.py), which
 an unmasked start vector brings into the Krylov space.  ``eigs_nonsym``
@@ -37,6 +42,7 @@ import torch
 
 from .._util import to_numpy
 from ..ops.operators import LinearOperator
+from .graphs import CycleGraphs
 from .lanczos import _default_basis_dot, _default_dot, _resolve_dot
 from .results import EigResult, acceptance_inner_prod
 from .rows import Rows, _check_dtype, _start_vector
@@ -142,13 +148,22 @@ def arnoldi(
 # Krylov–Schur restart cycle
 
 
+def _ks_cycle(matvec, V, B, breakdown_iter, l: int, m: int, reorth_passes: int, dot,
+              basis_dot):
+    """Steps l..m-1 of a Krylov–Schur cycle into V and B, in place, with
+    ``breakdown_iter`` reset to m first; returns it."""
+    breakdown_iter.fill_(m)
+    return _extend(matvec, V, B, l, m, breakdown_iter, reorth_passes, dot, basis_dot)
+
+
 def _rotate_basis(V, Z, l: int):
-    """V_new rows [0, l) = Z^T @ V[:m]; row l = old residual row V[m]."""
+    """In place: rows [0, l) of V become Z^T @ V[:m], row l the old
+    residual row V[m], the rows after it zero.  Returns V."""
     m = V.shape[0] - 1
-    out = torch.zeros_like(V)
-    out[:l] = Z.T @ V[:m]
-    out[l] = V[m]
-    return out
+    V[:l] = Z.T @ V[:m]  # the product is a temporary, read whole before the write
+    V[l] = V[m]
+    V[l + 1:] = 0
+    return V
 
 
 def _schur_sort_select(Bm, which, k):
@@ -230,14 +245,16 @@ def eigs_nonsym(
     V = torch.zeros((m + 1, rows.n), dtype=dtype, device=op.device)
     V[0] = v0 / rows.norm(v0)
     B = torch.zeros((m + 1, m), dtype=dtype, device=op.device)
+    bki = torch.empty((), dtype=torch.int64, device=op.device)
+    graphs = CycleGraphs(op)
     l = 0
     best = None
     best_worst = np.inf
     stall = 0
 
     for cycle in range(max_cycles):
-        _extend(op.matvec, V, B, l, m, torch.tensor(m, device=op.device), reorth_passes,
-                rows.dot, rows.basis_dot)
+        graphs.run(("krylov_schur", l, m, reorth_passes, compensated, dtype), _ks_cycle,
+                   op.matvec, V, B, bki, l, m, reorth_passes, rows.dot, rows.basis_dot)
         Bh = to_numpy(B).astype(np.float64)
         Bm = Bh[:m, :m]
         bout = float(Bh[m, m - 1])
@@ -268,8 +285,8 @@ def eigs_nonsym(
             )
 
         # Truncate: rotate basis to the l_new leading Schur vectors.
-        V = _rotate_basis(V, torch.as_tensor(Z[:, :l_new], dtype=dtype, device=op.device), l_new)
-        B = torch.zeros_like(B)
+        _rotate_basis(V, torch.as_tensor(Z[:, :l_new], dtype=dtype, device=op.device), l_new)
+        B.zero_()
         B[:l_new, :l_new] = torch.as_tensor(T[:l_new, :l_new], dtype=dtype, device=op.device)
         B[l_new, :l_new] = torch.as_tensor(b_new, dtype=dtype, device=op.device)
         l = l_new

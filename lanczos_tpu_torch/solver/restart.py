@@ -15,6 +15,11 @@ package.  Residual estimates are |beta_m y_i[m]|, with no extra SpMV; on
 convergence a Rayleigh–Ritz step against the operator itself
 (``rr_verify``) checks and refines them.
 
+The cycle is the counterpart of ``_cycle_jit``: on a card it runs as a
+CUDA graph (``solver/graphs.py``), so the basis, the restart vector ``u``
+and the couplings ``sigma`` are buffers of fixed address for the whole
+solve, filled in place between cycles.
+
 A row-sharded operator (``parallel/``) runs the same cycle with every
 reduction all-reduced over its mesh (``solver/rows.py``): the basis, the
 locked block and the eigenvectors stay row-sharded, each rank holding its
@@ -41,6 +46,7 @@ import torch
 
 from .._util import to_numpy
 from ..ops.operators import LinearOperator
+from .graphs import CycleGraphs
 from .lanczos import _orthogonalize
 from .results import EigResult, acceptance_inner_prod
 from .rows import Rows, _check_dtype, _start_vector
@@ -257,21 +263,27 @@ def eigsh_restarted(
                 )
             if l:
                 V[:l] = torch.as_tensor(V_locked, dtype=dtype, device=dev)
-            u = torch.as_tensor(u_np, dtype=dtype, device=dev)
+            u = torch.tensor(u_np, dtype=dtype, device=dev)
             theta = np.asarray(theta, np.float64)
             sigma = np.asarray(sigma, np.float64)
             resumed = True
     if not resumed:
         v0 = _start_vector(op, v0, seed, dtype)
         u = v0 / rows.norm(v0)
+    # The cycle's inputs, at fixed addresses: u holds the restart vector
+    # from here on, sigma_buf[:l] the couplings of the locked rows.
+    sigma_buf = torch.zeros(m, dtype=dtype, device=dev)
+    graphs = CycleGraphs(op)
 
     cycles = cycle0
     for cycle in range(cycle0, max_cycles):
         cycles = cycle + 1
-        alpha, beta, u, beta_last = _cycle(
-            op.matvec, V, u, torch.as_tensor(sigma, dtype=dtype, device=dev), l, m,
-            rows.dot, rows.basis_dot, reorth_passes,
+        sigma_buf[:l].copy_(torch.from_numpy(np.asarray(sigma)))
+        alpha, beta, u_next, beta_last = graphs.run(
+            ("thick_restart", l, m, reorth_passes, compensated, dtype), _cycle,
+            op.matvec, V, u, sigma_buf[:l], l, m, rows.dot, rows.basis_dot, reorth_passes,
         )
+        u.copy_(u_next)
         a = to_numpy(alpha).astype(np.float64)
         b = to_numpy(beta).astype(np.float64)
         if not (np.isfinite(a).all() and np.isfinite(b).all()):

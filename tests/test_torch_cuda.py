@@ -232,3 +232,41 @@ def test_cuda_cli_restart_and_compensated():
         on_card = main(args + ["--device", "cuda"]).eigenvalues.cpu().numpy()
         on_cpu = main(args + ["--device", "cpu"]).eigenvalues.numpy()
         np.testing.assert_allclose(on_card, on_cpu, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_captured_cycles_equal_the_eager_ones(dtype):
+    """eigs_nonsym and eigsh_restarted on the card: every cycle after the
+    first replays a CUDA graph, the kernels' launch counts include the
+    replays, and the results equal the eager body's (graphs.eager()),
+    bitwise: a replay runs the eager kernels with their arguments."""
+    from lanczos_tpu_torch.solver import graphs
+
+    _require_card()
+    C, idx_map = _mixed_v2(dtype, "cuda")
+    v0 = np.zeros(C.shape[0])
+    v0[idx_map] = np.random.default_rng(5).uniform(-1, 1, len(idx_map))
+    H = pt.build_regular_hamiltonian(16, 25.0, pt.deuteron_potential_3d, stencil="27",
+                                     dtype=dtype, device="cuda")
+    solves = (
+        lambda: pt.eigs_nonsym(C, k=4, max_basis=30, tol=1e-6, v0=v0),
+        lambda: pt.eigsh_restarted(H, k=4, max_basis=20, tol=1e-6, compensated=True, seed=3),
+    )
+    for solve in solves:
+        before = sk.stencil_spmv.launches
+        graphs.reset_stats()
+        captured = solve()
+        torch.cuda.synchronize()
+        st = dict(graphs.stats)
+        assert len(st["cycles"]) >= 3
+        assert (st["eager"], st["captures"], st["replays"]) == (
+            1, len(set(st["cycles"][1:])), len(st["cycles"]) - 1)
+        launched = sk.stencil_spmv.launches - before
+        with graphs.eager():
+            before = sk.stencil_spmv.launches
+            plain = solve()
+            torch.cuda.synchronize()
+            assert sk.stencil_spmv.launches - before == launched
+        for name in ("eigenvalues", "eigenvectors", "residuals"):
+            assert torch.equal(getattr(captured, name), getattr(plain, name)), name
