@@ -86,8 +86,7 @@ The north-star path (compensated reductions, thick restart, refinement):
     cuSPARSE times of the interface kernel (fp32, fp64), the SpMV (fp32,
     fp64) and the SpMM at b=8 (fp32) on the lattice's level grids.  The
     restart cycles run as CUDA graphs; the busy share of one cycle is taken
-    captured and eager (``graphs.eager()``), and the fp32 solve is run
-    again with eager cycles beside the pipeline's captured one.
+    captured and eager (``graphs.eager()``).
 16. ``eigs_nonsym(compensated=True, k=8)`` at N=60 (fp32) and
     ``refine_eigenpairs_dd_nonsym`` of its pairs, against the N=60 golden;
     every refined pair of a complete cluster (one that does not hold the
@@ -99,12 +98,19 @@ The block solver, look-ahead, the CLI and the benchmark:
 17. ``eigsh_block_restarted(k=20, block_size=4)`` at N=160^3 in fp32 (tol
     1e-4) and fp64 (tol 1e-5), with wall, cycles, peak memory, launches
     and the SpMM's call widths (b=4 in the recurrence, k in the
-    verification): true residuals within 14 eps32 ||H||_G (fp32) and a
+    verification): every cycle after the first a CUDA graph replay (one
+    capture; captures, replays and cycles redone printed), the first 6
+    cycles' a/b blocks bitwise equal to an eager 6-cycle run's
+    (``graphs.eager()``; the 6-cycle runs' walls and peak memory, eager and
+    captured); true residuals within 14 eps32 ||H||_G (fp32) and a
     tenth of eps32 ||H||_G (fp64); the fp32 block against the fp64 block,
     sorted, within eps32 ||H||_G; the fp64 block as phase 12's
     multiplicity reference (the 5.2368/5.2370/5.2373 cluster's copies in
     each solve; phase 12's fp32 values by sorted pairing, or, where the
     single-vector solve holds other copies, by nearest value each way).
+    Then a breakdown on the card: a rank-10 120 x 120 fp64 operator whose
+    first captured cycle breaks down and is redone eagerly with the cure,
+    held bitwise against the eager solve.
 18. The CLI in process on the default device: ``solve-regular -N 64 -k 8
     --block-size 4`` against the N=64 golden by nearest value, each way.
 19. ``two_sided_lanczos_lookahead(n=250)`` and ``lookahead_eigs(k=5,
@@ -115,7 +121,9 @@ The block solver, look-ahead, the CLI and the benchmark:
     by graph replay): its GB/s within 50-100% of phase 3's copy rate.
 
 Row sharding (``lanczos_tpu_torch/parallel``), over a one-rank NCCL process
-group the script starts itself (the card cannot hold two NCCL ranks):
+group the script starts itself (the card cannot hold two NCCL ranks); each
+of its collectives is first captured alone in a CUDA graph and replayed
+against its eager call:
 
 21. ``lanczos_sharded(shard_operator(H), n=400)`` at N=160^3 in fp32 from
     phase 5's start vector: its 20 lowest Ritz values against phase 5's
@@ -134,11 +142,16 @@ group the script starts itself (the card cannot hold two NCCL ranks):
     level slabs at D = 4 (18 and 27 planes) against their plain version
     and timed; phase 14's pipeline with its fp32 compensated
     ``eigsh_restarted`` on the sharded operator, held to phase 14's scipy
-    values and residual gates, its launches counted over that solve alone.
+    values and residual gates, its launches counted over that solve alone;
+    its cycles captured with their collectives (fails if a cycle after the
+    first does not replay), its wall and a cycle's wall and busy share
+    beside the same solve with eager cycles and phase 14's unsharded one.
 23. The v1 ``CompositeOperator`` at N=120 (``eigs_nonsym(k=8,
-    max_basis=300, tol=1e-4)``, fp32), unsharded (captured cycles, then
-    eager ones) and through ``shard_composite``, each held to the N=120
-    golden as phase 9 holds it;
+    max_basis=300, tol=1e-4)``, fp32), unsharded and through
+    ``shard_composite``, each with captured cycles and then eager ones,
+    each held to the N=120 golden as phase 9 holds it (fails if a
+    captured cycle after the first does not replay; the sharded solve's
+    cycle wall and busy share, captured and eager);
     ``lanczos_sharded`` on ``shard_operator`` and ``shard_ell_halo`` of the
     N=60 ELL against the unsharded recurrence (1e-5).
 
@@ -161,7 +174,7 @@ The restart cycles as CUDA graphs (``lanczos_tpu_torch/solver/graphs.py``):
     through the eager body (``graphs.eager()``) from the same v0, in turns
     (captured, eager, eager, captured): walls, peak memory, graphs captured
     and their capture time, replays, the device busy share of a whole
-    solve and of one cycle (the second cycle's device time over the wall
+    solve and of one cycle (the third cycle's device time over the wall
     of a replayed cycle) with the interface kernel's and the SpMV's device
     time a launch in it, and the largest
     |diff| of the eigenvalues and of every cycle's B between the two paths
@@ -180,6 +193,7 @@ sharded launch counts and slab times); the last line is
 """
 
 import contextlib
+import gc
 import itertools
 import json
 import os
@@ -1000,7 +1014,14 @@ def solve_record(lt, op, v0, **kw):
     finally:
         arnoldi._schur_sort_select = schur
     return dict(res=res, wall=wall, peak=torch.cuda.max_memory_allocated(), B=quotients,
-                stats=dict(graphs.stats), marks=marks)
+                stats=graph_stats(), marks=marks)
+
+
+def graph_stats():
+    """A copy of ``graphs.stats`` that later cycles leave as it is."""
+    from lanczos_tpu_torch.solver import graphs
+
+    return dict(graphs.stats, cycles=list(graphs.stats["cycles"]))
 
 
 def max_diff(a, b):
@@ -1082,8 +1103,8 @@ def phase_graph_cycles(lt, host):
         for mode in ("captured", "eager"):
             with graphs.eager() if mode == "eager" else contextlib.nullcontext():
                 pwall, dev = busy_share(lambda: lt.eigs_nonsym(op, v0=v0, **kw))
-                cyc_dev, per_kernel = cycle_device(
-                    lambda c: lt.eigs_nonsym(op, v0=v0, max_cycles=c, **kw), 1, kernels)
+                cyc_dev, per_kernel = cycle_profile(
+                    lambda c: lt.eigs_nonsym(op, v0=v0, max_cycles=c, **kw), kernels)
             cyc_wall = float(np.median([o for _, o in cycle_s[mode] if o is not None]))
             busy[mode] = dict(solve_profiled_wall_s=pwall, solve_device_busy_s=dev,
                               cycle_wall_s=cyc_wall, cycle_device_busy_s=cyc_dev,
@@ -1094,7 +1115,7 @@ def phase_graph_cycles(lt, host):
                   f"{dev:.3f} s ({dev / pwall:.1%}); one cycle after the first "
                   f"{'replayed ' if mode == 'captured' else ''}(with the host work to the next) "
                   f"{cyc_wall:.3f} s unprofiled, its device time {cyc_dev:.3f} s "
-                  f"({cyc_dev / cyc_wall:.1%}); in the second cycle {per}")
+                  f"({cyc_dev / cyc_wall:.1%}); in the third cycle {per}")
         out[name] = dict(walls={m: [r["wall"] for r in rs] for m, rs in runs.items()},
                          peak_gib={m: max(r["peak"] for r in rs) / 2**30
                                    for m, rs in runs.items()},
@@ -1432,23 +1453,50 @@ def _northstar():
     return northstar_torch
 
 
-def phase_northstar_small(mesh=None, ref=None):
-    """Phase 14 (and, with ``mesh``, phase 22's sharded solve): returns
-    (max abs error per kernel, the scipy reference values, launches)."""
+def phase_northstar_small(mesh=None, ref=None, unsharded=None):
+    """Phase 14 (and, with ``mesh``, phase 22's sharded solve, held against
+    its eager cycles and beside ``unsharded``, phase 14's record): returns
+    (max abs error per kernel, the scipy reference values, launches, the
+    pipeline's record)."""
     import scipy.sparse
     import scipy.sparse.linalg
+
+    from lanczos_tpu_torch.solver import graphs, restart
 
     print(f"== north-star pipeline at n_fine=72 (k=100 + 10, fp32 tol 3e-7, refinement tol "
           f"1e-8{'; the fp32 solve row-sharded over ' + repr(mesh) if mesh else ''}) vs scipy "
           "eigsh(L + I, k=110, 'SA', tol=1e-12)")
     reset_launches()
-    t0 = time.perf_counter()
-    info, extra = _northstar().run(n_fine=72, device="cuda", verbose=False, mesh=mesh)
-    wall = time.perf_counter() - t0
+    graphs.reset_stats()
+    # The fp32 solve's eigenvalues, kept for the comparison with its eager
+    # cycles (the pipeline keeps only the refined pairs).
+    solved = []
+    solver = restart.eigsh_restarted
+
+    def keep(*args, **kw):
+        res = solver(*args, **kw)
+        solved.append(res.eigenvalues.cpu().numpy())
+        return res
+
+    restart.eigsh_restarted = keep
+    try:
+        with cycle_clock() as marks:
+            t0 = time.perf_counter()
+            info, extra = _northstar().run(n_fine=72, device="cuda", verbose=False, mesh=mesh)
+            wall = time.perf_counter() - t0
+    finally:
+        restart.eigsh_restarted = solver
     launches = read_launches()
+    st = graph_stats()
+    info["graphs"] = {key: st[key] for key in ("eager", "captures", "capture_s", "replays")}
+    _, info["cycle_wall_s"] = cycle_walls(marks, "replay")
     print(f"  {info['num_points']} points, M = {info['m_operator']}, {info['n_interface_classes']} "
           f"interface classes; wall {wall:.2f} s (fp32 solve {info['t_solve_fp32_s']:.2f} s, "
-          f"{info['cycles']} cycles; refinement {info['t_refine_s']:.2f} s)")
+          f"{info['cycles']} cycles: eager {st['eager']}, graphs captured {st['captures']} in "
+          f"{st['capture_s']:.3f} s, replays {st['replays']}; refinement "
+          f"{info['t_refine_s']:.2f} s)")
+    check(st["eager"] == 1 and st["replays"] == len(st["cycles"]) - 1,
+          f"n_fine=72{' sharded' if mesh else ''}: not every cycle after the first replayed: {st}")
     check(info["refine_completed"], f"n_fine=72 refinement failed: {info.get('refine_error')}")
     L = extra["L"]
     t0 = time.perf_counter()
@@ -1478,8 +1526,79 @@ def phase_northstar_small(mesh=None, ref=None):
         gen = torch.Generator(device="cuda").manual_seed(14)
         worst = max(hold_sharded_levels(shard_operator(o, mesh), "n_fine=72", gen)
                     for o in (extra["op"], to_float64(extra["op"])))
-        return {"stencil_spmv": worst}, ref, launches
-    return check_operator_kernels(extra["op"], "n_fine=72"), ref, launches
+        info["against_eager"] = sharded_n72_against_eager(
+            mesh, info, extra, (info["t_solve_fp32_s"], st, marks, solved[0]), unsharded)
+        return {"stencil_spmv": worst}, ref, launches, info
+    return check_operator_kernels(extra["op"], "n_fine=72"), ref, launches, info
+
+
+def sharded_n72_against_eager(mesh, info, extra, captured, unsharded):
+    """The pipeline's sharded fp32 solve (``captured``) against the same
+    solve with eager cycles, beside phase 14's unsharded solve."""
+    from lanczos_tpu_torch.parallel import shard_operator
+    from lanczos_tpu_torch.solver.restart import eigsh_restarted
+
+    op = shard_operator(extra["op"], mesh)
+    v0 = np.zeros(extra["op"].shape[0], dtype=np.float32)
+    v0[extra["idx_map"]] = np.random.default_rng(99).uniform(-1, 1, size=info["num_points"])
+    kw = dict(k=info["k"] + info["k_buffer"], tol=3e-7, which="SA", v0=op.host.to_sharded(v0),
+              compensated=True, max_basis=info["max_basis"], n_locked=info["n_locked"],
+              rr_verify=False)
+    out = captured_against_eager(
+        "sharded n_fine=72 fp32 eigsh_restarted",
+        lambda c: eigsh_restarted(op, max_cycles=c or 400, **kw).eigenvalues.cpu().numpy(),
+        {"captured": captured})
+    d = float(np.abs(out.pop("captured_result") - out.pop("eager_result")).max())
+    ratio = out["captured"]["wall_s"] / unsharded["t_solve_fp32_s"]
+    print(f"  sharded n_fine=72: captured - eager eigenvalues max |diff| {d:.3e}; captured "
+          f"{out['captured']['wall_s']:.3f} s against the unsharded captured solve (phase 14) "
+          f"{unsharded['t_solve_fp32_s']:.3f} s ({ratio:.2f}x; a cycle there "
+          f"{unsharded['cycle_wall_s']:.3f} s)")
+    out.update(eigenvalues_max_diff=d, unsharded_solve_s=unsharded["t_solve_fp32_s"],
+               unsharded_cycle_wall_s=unsharded["cycle_wall_s"])
+    return out
+
+
+def captured_against_eager(label, solve, timed=None):
+    """A solve on a row-sharded operator with its cycles captured and eager
+    (``graphs.eager()``): walls, graph counts, the wall of a cycle after the
+    first with the host work up to the next (cycle_clock) and that cycle's
+    device time (cycle_profile), so its busy share.  ``solve(max_cycles)``
+    runs the solve (``None``: to the end) and returns its eigenvalues;
+    ``timed`` maps a mode to (wall, graph stats, cycle marks, eigenvalues)
+    of a solve already timed in that mode.  Fails if a captured cycle after
+    the first did not replay."""
+    from lanczos_tpu_torch.solver import graphs
+
+    timed = timed or {}
+    out = {}
+    for mode, kind in (("captured", "replay"), ("eager", "plain")):
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            if mode in timed:
+                wall, st, marks, vals = timed[mode]
+            else:
+                graphs.reset_stats()
+                torch.cuda.synchronize()
+                with cycle_clock() as marks:
+                    t0 = time.perf_counter()
+                    vals = solve(None)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                st = graph_stats()
+            device_s, _ = cycle_profile(solve)
+        _, cycle_s = cycle_walls(marks, kind)
+        out[mode] = dict(wall_s=wall, cycles=len(st["cycles"]), eager=st["eager"],
+                         captures=st["captures"], capture_s=st["capture_s"],
+                         replays=st["replays"], cycle_wall_s=cycle_s, cycle_device_s=device_s)
+        out[f"{mode}_result"] = vals
+        print(f"  {label}, {mode} cycles: wall {wall:.3f} s, {len(st['cycles'])} cycles, graphs "
+              f"captured {st['captures']} in {st['capture_s']:.3f} s, replays {st['replays']}; "
+              f"a cycle after the first (with the host work to the next) {cycle_s:.3f} s, its "
+              f"device time {device_s:.3f} s ({device_s / cycle_s:.1%} busy)")
+    st = out["captured"]
+    check(st["eager"] == 1 and st["replays"] == st["cycles"] - 1,
+          f"{label}: not every cycle after the first replayed a graph: {st}")
+    return out
 
 
 def phase_northstar(n_fine):
@@ -1550,16 +1669,33 @@ def busy_share(fn, kernels=()):
     return wall, busy, found
 
 
-def cycle_device(solve, cycles, kernels=()):
+def cycle_profile(solve, kernels=(), index=2):
     """Device time of one cycle of a restarted solve: ``solve(c)`` runs c
-    cycles, and the cycle is a run of ``cycles + 1`` less a run of
-    ``cycles`` from the same start, both under the profiler.  (Cycle 1 of
-    a capturing solve is its capture, which runs nothing on the device,
-    and the graph's first replay.)  Returns (device s, {kernel: (launches,
-    device s)})."""
-    (_, b0, k0), (_, b1, k1) = (busy_share(lambda c=c: solve(c), kernels or ("_",))
-                                for c in (cycles, cycles + 1))
-    return b1 - b0, {n: (k1[n][0] - k0[n][0], k1[n][1] - k0[n][1]) for n in kernels}
+    cycles; of a run of ``index + 1`` cycles only cycle ``index`` runs
+    under the profiler, the device synchronized around it (cycle 2 is a
+    replay when the cycles are captured: cycle 0 runs eagerly, cycle 1 is
+    the capture).  Returns (device s, {kernel: (launches, device s)})."""
+    from lanczos_tpu_torch.solver import graphs
+
+    run = graphs.CycleGraphs.run
+    calls, out = [], {}
+
+    def profiled(self, static, body, *args):
+        calls.append(static)
+        if len(calls) - 1 != index:
+            return run(self, static, body, *args)
+        result = []
+        _, out["busy"], out["found"] = busy_share(
+            lambda: result.append(run(self, static, body, *args)), kernels or ("_",))
+        return result[0]
+
+    graphs.CycleGraphs.run = profiled
+    try:
+        solve(index + 1)
+    finally:
+        graphs.CycleGraphs.run = run
+    check("busy" in out, f"the solve ended before its cycle {index}")
+    return out["busy"], {n: out["found"][n] for n in kernels}
 
 
 @contextlib.contextmanager
@@ -1605,10 +1741,9 @@ def cycle_walls(marks, kind):
 def northstar_busy_shares(info, extra):
     """Device busy share of one restart cycle, captured (the replay of a
     CUDA graph) and eager (``graphs.eager()``), and of one refinement
-    round (under the profiler); the fp32 solve again with eager cycles,
-    beside the pipeline's captured one.  A cycle is m - l steps from the
+    round (under the profiler).  A cycle is m - l steps from the
     locked block, the host eigh of the arrowhead and the Ritz rotation: its
-    device time is the second cycle of a run (cycle_device), its wall the
+    device time is the third cycle of a run (cycle_profile), its wall the
     median of cycles 2 and 3 of a 5-cycle run (cycle 0 from the start
     vector, cycle 1 the capture of l = n_locked; cycle_clock).  The round is
     ``max_rounds=1, tol=0``: a residual sweep, the Rayleigh-Ritz rotation,
@@ -1632,7 +1767,7 @@ def northstar_busy_shares(info, extra):
             with cycle_clock() as marks:
                 eigsh_restarted(op, max_cycles=5, **kw)
             peaks[mode] = torch.cuda.max_memory_allocated()
-            busy, _ = cycle_device(lambda c: eigsh_restarted(op, max_cycles=c, **kw), 1)
+            busy, _ = cycle_profile(lambda c: eigsh_restarted(op, max_cycles=c, **kw))
         _, wall = cycle_walls(marks, kind)
         out[f"restart_cycle_{mode}"] = (wall, None, busy)
     lam, X = extra["lam_shifted"], extra["X64"]
@@ -1651,18 +1786,8 @@ def northstar_busy_shares(info, extra):
               f"({busy / pwall:.1%} of the profiled wall; not timed unprofiled)")
     print(f"  peak device memory of a 5-cycle solve: captured {peaks['captured'] / 2**30:.3f} "
           f"GiB, eager {peaks['eager'] / 2**30:.3f} GiB")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with graphs.eager():
-        res = eigsh_restarted(op, max_cycles=400, **kw)
-    torch.cuda.synchronize()
-    eager_solve = time.perf_counter() - t0
-    print(f"  fp32 solve: captured (the pipeline's) {info['t_solve_fp32_s']:.3f} s, "
-          f"{info['cycles']} cycles; eager {eager_solve:.3f} s, {res.cycles} cycles; "
-          f"{card_label()}")
     shares = {name: dict(wall_s=w, profiled_wall_s=p, device_busy_s=b)
               for name, (w, p, b) in out.items()}
-    shares["fp32_solve_eager_s"] = eager_solve
     shares["peak_3_cycles_gib"] = {k: v / 2**30 for k, v in peaks.items()}
     return shares
 
@@ -1862,16 +1987,20 @@ def cluster_copies(vals):
 
 
 def phase_block_flagship(lt, restarted):
-    """eigsh_block_restarted(k=20, block_size=4) at N=160^3 in fp32 and fp64;
-    the fp64 block is phase 12's multiplicity reference.  Returns each
-    dtype's launches."""
+    """eigsh_block_restarted(k=20, block_size=4) at N=160^3 in fp32 and fp64,
+    its cycles captured, each held against the eager path over its first
+    6 cycles; the fp64 block is phase 12's multiplicity reference; then a
+    breakdown on the card.  Returns each dtype's launches."""
     from lanczos_tpu_torch.ops import operators
+    from lanczos_tpu_torch.solver import block, graphs
 
     N, k, b = 160, 20, 4
     print(f"== eigsh_block_restarted at N=160^3 (27-point, k={k}, block_size={b}): fp32 (tol "
-          "1e-4), fp64 (tol 1e-5); the fp64 block as phase 12's multiplicity reference")
-    # Record the width of every SpMM call: the recurrence runs at b, the
-    # Rayleigh-Ritz verification and the acceptance at k.
+          "1e-4), fp64 (tol 1e-5), every cycle after the first a CUDA graph replay; the fp64 "
+          f"block as phase 12's multiplicity reference; on {card_label()}")
+    # Record the width of every SpMM call made from Python (a replay makes
+    # none): the recurrence runs at b, the Rayleigh-Ritz verification and
+    # the acceptance at k.
     widths = {}
     spmm = operators.stencil_spmm
 
@@ -1879,8 +2008,18 @@ def phase_block_flagship(lt, restarted):
         widths[X.shape[1]] = widths.get(X.shape[1], 0) + 1
         return spmm(op, X)
 
+    # Every cycle's a/b blocks as the solver reads them back.
+    blocks = []
+    read_cycle = block._read_cycle
+
+    def read_spy(*args):
+        out = read_cycle(*args)
+        blocks.append(out[:2])
+        return out
+
     runs = {}
     operators.stencil_spmm = spy
+    block._read_cycle = read_spy
     try:
         # fp32 stops at its floor, far above either tol, so its tol only
         # sets when the verification starts; fp64's puts every true residual
@@ -1893,16 +2032,51 @@ def phase_block_flagship(lt, restarted):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset_launches()
+            graphs.reset_stats()
             widths.clear()
+            blocks.clear()
             t0 = time.perf_counter()
             res = lt.eigsh_block_restarted(H, k=k, block_size=b, tol=solve_tol, max_cycles=400)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = read_launches()
             peak = torch.cuda.max_memory_allocated()
+            st = graph_stats()
             print(f"  {name}: wall {wall:.3f} s, {res.cycles} cycles, peak device memory "
-                  f"{peak / 2**30:.2f} GiB, launches {json.dumps(launches)}, SpMM calls by "
-                  f"width {dict(sorted(widths.items()))}")
+                  f"{peak / 2**30:.2f} GiB, launches {json.dumps(launches)}, SpMM calls from "
+                  f"Python by width {dict(sorted(widths.items()))}")
+            print(f"  {name}: eager cycles {st['eager']}, graphs captured {st['captures']} in "
+                  f"{st['capture_s']:.3f} s, replays {st['replays']}, cycles redone "
+                  f"{st['redo']}")
+            check(st["eager"] == 1 and st["replays"] == res.cycles - 1
+                  and st["captures"] == len(set(st["cycles"][1:])),
+                  f"block {name}: not every cycle after the first was a replay: {st}")
+            first = blocks[:6]
+            # The eager path over the first 6 cycles, and the captured one
+            # over the same window for its peak memory.
+            window = {}
+            for mode in ("eager", "captured"):
+                blocks.clear()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+                    lt.eigsh_block_restarted(H, k=k, block_size=b, tol=solve_tol, max_cycles=6)
+                torch.cuda.synchronize()
+                window[mode] = (time.perf_counter() - t0, torch.cuda.max_memory_allocated(),
+                                list(blocks))
+            eager_blocks = window["eager"][2]
+            same = len(first) == len(eager_blocks) == 6 and all(
+                np.array_equal(x, y) for pair in zip(first, eager_blocks) for x, y in zip(*pair))
+            d_ab = max(float(np.abs(x - y).max(initial=0.0))
+                       for pair in zip(first, eager_blocks) for x, y in zip(*pair))
+            print(f"  {name}: the first 6 cycles, 6-cycle solves: eager "
+                  f"{window['eager'][0]:.3f} s, peak {window['eager'][1] / 2**30:.2f} GiB; captured "
+                  f"{window['captured'][0]:.3f} s, peak {window['captured'][1] / 2**30:.2f} GiB; "
+                  f"the solve's a/b blocks against the eager path's: max |diff| {d_ab:.3e}, "
+                  f"{'bitwise equal' if same else 'NOT bitwise equal'}")
+            check(same, f"block {name}: the captured cycles' a/b blocks differ from the eager "
+                        "path's")
             print(res.summary(print_nr=k))
             for what, t in (("eigenvalues", res.eigenvalues), ("eigenvectors", res.eigenvectors),
                             ("residuals", res.residuals), ("inner_prod", res.inner_prod)):
@@ -1924,6 +2098,8 @@ def phase_block_flagship(lt, restarted):
             torch.cuda.empty_cache()
     finally:
         operators.stencil_spmm = spmm
+        block._read_cycle = read_cycle
+    block_breakdown(lt)
 
     tol = runs[torch.float32]["tol"]
     ref = runs[torch.float64]["vals"]
@@ -1952,6 +2128,39 @@ def phase_block_flagship(lt, restarted):
         check(max(d_ab.max(), d_ba.max()) <= tol,
               "phase 12's fp32 values are off the fp64 block by nearest value")
     return {str(dt)[6:]: r["launches"] for dt, r in runs.items()}
+
+
+def block_breakdown(lt):
+    """A breakdown on the card: the rank-10 operator B B^T (120 x 120,
+    fp64, a DenseOperator), 3 blocks of 4 a cycle, whose second cycle (the
+    first one captured) breaks down and is redone eagerly with the cure;
+    the captured solve is held bitwise against the eager one, and near the
+    four largest dense eigenvalues (the solve runs out its 10 cycles)."""
+    from lanczos_tpu_torch.ops.operators import DenseOperator
+    from lanczos_tpu_torch.solver import graphs
+
+    Bm = np.random.default_rng(5).standard_normal((120, 10))
+    op = DenseOperator(torch.as_tensor(Bm @ Bm.T, device="cuda"))
+    kw = dict(k=4, block_size=4, num_blocks=3, n_locked=4, tol=1e-9, max_cycles=10, which="LA")
+    out = {}
+    for mode in ("captured", "eager"):
+        graphs.reset_stats()
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            res = lt.eigsh_block_restarted(op, **kw)
+        out[mode] = (res, graph_stats())
+    (cap, st), (plain, st_e) = out["captured"], out["eager"]
+    same = all(torch.equal(getattr(cap, f), getattr(plain, f))
+               for f in ("eigenvalues", "eigenvectors", "residuals", "inner_prod"))
+    exact = np.sort(np.linalg.eigvalsh(Bm @ Bm.T))[::-1][:4]
+    d = float(np.abs(cap.eigenvalues.cpu().numpy() - exact).max())
+    print(f"  a breakdown on the card (rank-10 B B^T, 120 x 120 fp64, b=4, 3 blocks): captured "
+          f"{cap.cycles} cycles, replays {st['replays']}, cycles redone {st['redo']} (eager: "
+          f"{st_e['redo']}); captured against eager {'bitwise equal' if same else 'DIFFER'}; "
+          f"max |lambda - dense| {d:.3e}")
+    check(st["redo"] >= 1 and st["redo"] == st_e["redo"] and st["replays"] == cap.cycles - 1,
+          f"the rank-deficient block solve did not redo a captured cycle: {st}")
+    check(same, "the rank-deficient block solve's captured result differs from the eager one")
+    check(d <= 1e-6 * exact[0], "the rank-deficient block solve is off the dense eigenvalues")
 
 
 def phase_cli_block(lt):
@@ -2087,7 +2296,44 @@ def start_row_mesh():
     check(from_prev.tolist() == planes[1].tolist() and from_next.tolist() == planes[0].tolist()
           and total == 15.0 and gathered.tolist() == planes.tolist(),
           "the one-rank collectives do not return the rank's own data")
+    capture_collectives(mesh)
     return mesh
+
+
+def capture_collectives(mesh):
+    """Each collective of the row mesh captured alone in a CUDA graph (after
+    one eager call on the capture's stream) and replayed on new inputs,
+    held bitwise against its eager call: phases 22 and 23 capture them
+    inside the sharded restart cycles."""
+    cases = {
+        "all_reduce": (lambda a: mesh.all_reduce(a), (1000,)),
+        "all_gather": (lambda a: mesh.all_gather(a), (7, 3)),
+        "halo_exchange": (lambda a: torch.stack(mesh.halo_exchange(a[0], a[1])), (2, 4096)),
+    }
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    stream = torch.cuda.Stream()
+    for name, (fn, shape) in cases.items():
+        x = torch.randn(shape, generator=gen, device="cuda")
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fn(x)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            graph.capture_begin()
+            try:
+                out = fn(x)
+            finally:
+                graph.capture_end()
+        same = []
+        for _ in range(3):
+            x.copy_(torch.randn(shape, generator=gen, device="cuda"))
+            graph.replay()
+            same.append(torch.equal(out, fn(x)))
+        print(f"  {name} captured in a CUDA graph: 3 replays on new inputs "
+              f"{'bitwise equal to' if all(same) else 'DIFFER from'} the eager call")
+        check(all(same), f"a replayed {name} differs from the eager one")
+        del graph
 
 
 def slab_ops(H, d):
@@ -2223,13 +2469,16 @@ def hold_sharded_levels(so, label, gen):
     return worst
 
 
-def phase_sharded_composite2(lt, mesh, n216, n120, northstar_ref, copy_gbs, floor_ms):
+def phase_sharded_composite2(lt, mesh, n216, n120, northstar_ref, unsharded, copy_gbs,
+                             floor_ms):
     """Phase 22: shard_operator of phase 15's n_fine=216 operator and of the
     N=120 deuteron CompositeV2 over the one-rank mesh, matvecs against the
     unsharded ones in fp32 and fp64, and each level's slab and correction
     kernels against their plain version; the slab kernels of the n_fine=216
     levels at D = 4 against their plain version and timed; the n_fine=72
-    pipeline with its fp32 solve sharded, held as phase 14."""
+    pipeline with its fp32 solve sharded, held as phase 14, its cycles
+    captured, against the same solve with eager cycles and beside phase
+    14's unsharded solve."""
     from lanczos_tpu_torch.ops import stencil_kernels as sk
     from lanczos_tpu_torch.ops.dd import to_float64
     from lanczos_tpu_torch.parallel import shard_operator
@@ -2278,9 +2527,11 @@ def phase_sharded_composite2(lt, mesh, n216, n120, northstar_ref, copy_gbs, floo
         rows_t["x".join(map(str, op.slab.grid_shape))] = slab_row(
             op.slab, "stencil_spmv n_fine=216 D=4 slab", copy_gbs, floor_ms)
 
-    n72_abs, _, solve_launches = phase_northstar_small(mesh=mesh, ref=northstar_ref)
+    n72_abs, _, solve_launches, n72 = phase_northstar_small(mesh=mesh, ref=northstar_ref,
+                                                           unsharded=unsharded)
     return dict(launches=launches, solve_launches=solve_launches,
-                max_abs=max(max_abs, n72_abs["stencil_spmv"]), slab_rows=rows_t)
+                max_abs=max(max_abs, n72_abs["stencil_spmv"]), slab_rows=rows_t,
+                n72_against_eager=n72["against_eager"])
 
 
 def phase_composite_v1(lt, mesh, host):
@@ -2305,25 +2556,29 @@ def phase_composite_v1(lt, mesh, host):
           f"{comp.ifc_rows.shape[0]} interface rows")
     v_lat = np.random.default_rng(99).uniform(-1.0, 1.0, lat.num_points)
     sc = shard_composite(comp, mesh.size)
+    sop, v_sharded = sc.as_operator(mesh), sc.to_sharded(v_lat[perm])
     out = {}
-    # The unsharded solve runs its cycles as CUDA graphs, and again with
-    # the eager body; a sharded operator's cycles are always eager.
+    # Each solve runs its cycles as CUDA graphs (the sharded one with its
+    # NCCL collectives inside), and again with the eager body.
     for label, op, v0 in (("unsharded", comp, v_lat[perm]),
                           ("unsharded, eager cycles", comp, v_lat[perm]),
-                          ("shard_composite", sc.as_operator(mesh), sc.to_sharded(v_lat[perm]))):
+                          ("shard_composite", sop, v_sharded),
+                          ("shard_composite, eager cycles", sop, v_sharded)):
         reset_launches()
         graphs.reset_stats()
-        t0 = time.perf_counter()
-        with graphs.eager() if "eager" in label else contextlib.nullcontext():
-            res = lt.eigs_nonsym(op, k=8, max_basis=300, tol=1e-4, v0=v0)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        st = graphs.stats
+        with cycle_clock() as marks:
+            t0 = time.perf_counter()
+            with graphs.eager() if "eager" in label else contextlib.nullcontext():
+                res = lt.eigs_nonsym(op, k=8, max_basis=300, tol=1e-4, v0=v0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        st = graph_stats()
         print(f"  {label}: {len(st['cycles'])} cycles, graphs captured {st['captures']} in "
               f"{st['capture_s']:.3f} s, replays {st['replays']}")
-        if label == "unsharded":
-            check(st["replays"] == len(st["cycles"]) - 1,
-                  "the v1 composite's cycles after the first did not all replay a graph")
+        if "eager" not in label:
+            check(st["eager"] == 1 and st["replays"] == len(st["cycles"]) - 1,
+                  f"v1 {label}: the cycles after the first did not all replay a graph")
         vals, resid = res.eigenvalues.cpu().numpy(), res.residuals.cpu().numpy()
         print(f"  {label}: wall {wall:.3f} s, launches {json.dumps(read_launches())}")
         check(bool(torch.isfinite(res.eigenvectors).all()) and np.isfinite(vals).all(),
@@ -2337,9 +2592,29 @@ def phase_composite_v1(lt, mesh, host):
         worst, n_checked = check_against(f"v1 N=120 fp32 {label} vs lanczos_tpu fp64",
                                          vals[vals <= top], resid[vals <= top], golden, EPS32,
                                          norms, 1e-4)
-        out[label] = dict(wall=wall, worst=worst, checked=n_checked)
+        out[label] = dict(wall=wall, worst=worst, checked=n_checked, stats=st, marks=marks,
+                          vals=vals)
         del res
-    del comp, sc
+    # The sharded solve's cycles, captured against eager: the walls above,
+    # a cycle's wall and device time.
+    sharded = {mode: out[label] for mode, label in (("captured", "shard_composite"),
+                                                    ("eager", "shard_composite, eager cycles"))}
+    busy = captured_against_eager(
+        "sharded v1 N=120 fp32 eigs_nonsym",
+        lambda c: lt.eigs_nonsym(sop, k=8, max_basis=300, tol=1e-4, v0=v_sharded,
+                                 max_cycles=c or 60).eigenvalues.cpu().numpy(),
+        {mode: (r["wall"], r["stats"], r["marks"], r["vals"]) for mode, r in sharded.items()})
+    d = float(np.abs(sharded["captured"]["vals"] - sharded["eager"]["vals"]).max())
+    print(f"  sharded v1: captured - eager eigenvalues max |diff| {d:.3e}; walls: sharded "
+          f"captured {sharded['captured']['wall']:.3f} s, sharded eager "
+          f"{sharded['eager']['wall']:.3f} s, unsharded captured {out['unsharded']['wall']:.3f} s, "
+          f"unsharded eager {out['unsharded, eager cycles']['wall']:.3f} s; {card_label()}")
+    for label in list(out):
+        out[label] = {key: out[label][key] for key in ("wall", "worst", "checked")}
+    busy.pop("captured_result")
+    busy.pop("eager_result")
+    out["sharded_against_eager"] = dict(busy, eigenvalues_max_diff=d)
+    del comp, sc, sop
     torch.cuda.empty_cache()
 
     print("== lanczos_sharded(n=100) on the N=60 ELL (fp32): shard_operator (all-gather) and "
@@ -2502,7 +2777,7 @@ def main():
         # Row sharding: one NCCL rank on the card (21-23).
         21: lambda: phase_sharded_flagship(lt, mesh, flagship, copy_gbs, floor_ms),
         22: lambda: phase_sharded_composite2(lt, mesh, results[15][2], n120, results[14][1],
-                                             copy_gbs, floor_ms),
+                                             results[14][3], copy_gbs, floor_ms),
         23: lambda: phase_composite_v1(lt, mesh, host),
         24: lambda: phase_tools(lt, n60),
         25: lambda: phase_graph_cycles(lt, host),
@@ -2521,6 +2796,9 @@ def main():
                   f"(at {time.perf_counter() - t_start:.1f} s)")
     finally:
         if dist.is_initialized():
+            # No captured graph holds the communicator past this point.
+            gc.collect()
+            torch.cuda.synchronize()
             dist.destroy_process_group()
     print(f"== all phases done at {time.perf_counter() - t_start:.1f} s")
     northstar, northstar_abs, _ = results[15]

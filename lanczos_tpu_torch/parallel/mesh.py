@@ -19,6 +19,15 @@ for ``"cuda"`` (one card per rank, ``cuda:LOCAL_RANK``) and gloo for
 ``"cpu"``.  The same code runs at every world size, 1 included: the halo
 exchange at D = 1 is a real collective in which a rank sends its planes to
 itself, never a local copy.
+
+Over NCCL every collective here can be captured in a CUDA graph (the
+sharded restart cycles are, ``solver/graphs.py``): none reads a device
+value on the host, the split lists and shapes are Python ints, and each
+collective is one NCCL kernel on the group's stream, joined to the
+capturing stream by events.  No environment setting is needed for that
+(``chip_smoke.py`` captures each alone and holds its replays against the
+eager call).  The group's communicator must exist before a capture: any
+eager collective creates it, and a solver's first cycle runs eagerly.
 """
 
 from __future__ import annotations
@@ -117,6 +126,11 @@ class RowMesh:
 
     def __repr__(self):
         return f"RowMesh(rank={self.rank}, size={self.size}, device={self.device})"
+
+    @property
+    def backend(self) -> str:
+        """The group's backend: ``"nccl"`` or ``"gloo"``."""
+        return dist.get_backend(self.group)
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum over ranks of ``t`` (a new tensor; ``t`` is untouched)."""

@@ -183,16 +183,38 @@ def _schur_sort_select(Bm, which, k):
     vals = scipy.linalg.eigvals(T)
     order = np.argsort(-np.asarray([keyfun(v) for v in vals]))
     kth = keyfun(vals[order[k - 1]])
-    # f2py inspects the callback's arity: dgees passes (wr, wi) to a two-arg
-    # select function, so the signature must be explicit.
-    T, Z, sdim = scipy.linalg.schur(
-        Bm, output="real", sort=lambda wr, wi: _sort_pred(complex(wr, wi), which, kth),
-    )
+    T, Z, sdim = _sorted_schur(Bm, which, kth)
     l = max(int(sdim), k)
     # Guard 2x2 block splitting: if T[l, l-1] != 0, extend by one.
     if l < Bm.shape[0] and abs(T[l, l - 1]) > 0:
         l += 1
     return T, Z, min(l, Bm.shape[0])
+
+
+def _sorted_schur(Bm, which, kth):
+    """``scipy.linalg.schur(Bm, sort=...)`` with the values whose key is at
+    least ``kth`` leading.
+
+    LAPACK's reordering may move a selected value across the threshold by
+    rounding (a copy of a degenerate Ritz value that sits on it), and scipy
+    then raises; the JAX package's ``_schur_sort_select`` stops the solve
+    there.  Here the threshold is lowered past the rounding (64 eps ||Bm||_1
+    at first, at most 1e6 times that) and the selection taken again: the
+    same leading values, with such copies beside them."""
+    import scipy.linalg
+
+    margin = 64 * np.finfo(np.float64).eps * np.linalg.norm(Bm, 1)
+    for relax in (0.0, margin, 1e3 * margin, 1e6 * margin):
+        try:
+            # f2py inspects the callback's arity: dgees passes (wr, wi) to a
+            # two-arg select function, so the signature must be explicit.
+            return scipy.linalg.schur(
+                Bm, output="real",
+                sort=lambda wr, wi: _sort_pred(complex(wr, wi), which, kth - relax),
+            )
+        except np.linalg.LinAlgError as e:
+            if "sort condition" not in str(e) or relax == 1e6 * margin:
+                raise
 
 
 def _sort_pred(val, which, kth):

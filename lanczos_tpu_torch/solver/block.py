@@ -18,18 +18,29 @@ SpMM never copies its operand):
 The ``lax.scan`` and ``lax.cond`` of the JAX package become a Python loop
 over device tensors that fills the basis in place; orthogonalization runs
 against the filled rows only (the JAX package multiplies by the whole
-zero-padded basis, whose zero rows contribute exactly 0).  The breakdown
-test reads B_j's deficient-column flags back each step to decide whether
-to cure.  The replacement directions come from a ``torch.Generator`` salted
-by the step, so they are not JAX's: compare outcomes, not bits.  QR's signs
+zero-padded basis, whose zero rows contribute exactly 0).  The replacement
+directions of the breakdown cure come from a ``torch.Generator`` salted by
+the step, so they are not JAX's: compare outcomes, not bits.  QR's signs
 may differ from JAX's too, which flips basis columns and changes the blocks
 by a +-1 similarity; the spectra do not change.
 
 The tall-skinny QR is Cholesky QR twice on the device (:func:`_tall_qr`),
 not ``torch.linalg.qr``: on an H100 80GB HBM3 at 700 W, cuSOLVER's
 Householder QR of a (160^3, 4) block took 22 ms, most of a step
-(``scripts/profile_torch_block.py``).  A step reads b + 1 flags back, its
-one synchronization.
+(``scripts/profile_torch_block.py``).  A step of ``block_lanczos`` reads
+b + 1 flags back (a failed Cholesky QR, the deficient columns) and then
+takes Householder QR or the cure.
+
+A thick-restart cycle of ``eigsh_block_restarted`` is the counterpart of
+``_block_cycle_jit``, whose cure is a ``lax.cond`` inside the compiled
+cycle.  Here the branch is taken per cycle: the cycle runs speculatively
+(:func:`_block_cycle` with ``flags``: Cholesky QR twice, no cure, no host
+read; each step writes its b + 1 flags into a device buffer), on a card as
+a CUDA graph replay (``solver/graphs.py``).  The flags are read once, with
+the cycle's blocks; where one is set, the cycle is run again from the same
+start, eagerly and checked, which is the eager solve's cycle.  Where none
+is set, the speculative cycle is the checked one, op for op: the cure
+returns its inputs when no column is deficient.
 """
 
 from __future__ import annotations
@@ -42,6 +53,8 @@ import torch
 from .._util import to_numpy
 from ..ops.operators import LinearOperator
 from .arnoldi import _check_dtype
+from .graphs import CycleGraphs
+from .graphs import stats as graph_stats
 from .rows import Rows, _unsharded
 from .restart import _refine_host, _ritz_update
 from .results import EigResult, acceptance_inner_prod
@@ -262,12 +275,20 @@ def block_ritz(fac: BlockLanczosFactorization):
     return theta, x, resid
 
 
-def _block_cycle(matmat, V, q0, l: int, nb: int, b: int):
+def _block_cycle(matmat, V, q0, l: int, nb: int, b: int, flags=None):
     """One thick-restart block cycle: blocks 0..nb-1 from the contiguous
     (M, b) start block q0, written into rows [l, l + nb*b) of V in place and
     deflated against the locked rows V[:l] by CGS2 over the filled rows.
     Returns (a_blocks (nb,b,b), b_blocks (nb-1,b,b), resid (M, b) orthogonal
-    to the whole basis)."""
+    to the whole basis).
+
+    Without ``flags`` each step's QR is checked on the host and cured
+    (:func:`_qr_step`).  With ``flags``, an (nb-1, b+1) bool buffer, the
+    cycle is speculative: each step takes Cholesky QR twice, never cures,
+    reads nothing back, and writes (failed, the deficient columns) into
+    ``flags[j]``; where no flag is set, its result is the checked cycle's.
+    It reads only V[:l] and q0, so a checked cycle from the same V and q0
+    replaces it exactly."""
     V[l:l + b] = q0.T
     q = q0
     a_blocks, b_blocks = [], []
@@ -279,7 +300,12 @@ def _block_cycle(matmat, V, q0, l: int, nb: int, b: int):
         # component and the locked coupling in one sweep.
         basis = V[: l + (j + 1) * b]
         r = _orth_block(basis, r)
-        q_next, b_j = _qr_step(r, lambda c: _orth_block(basis, c), j)
+        if flags is None:
+            q_next, b_j = _qr_step(r, lambda c: _orth_block(basis, c), j)
+        else:
+            q_next, b_j, failed = _tall_qr(r)
+            flags[j, 0] = failed
+            flags[j, 1:] = _deficient(b_j)
         q = q_next.contiguous()
         V[l + (j + 1) * b:l + (j + 2) * b] = q.T
         a_blocks.append(a_j)
@@ -290,6 +316,19 @@ def _block_cycle(matmat, V, q0, l: int, nb: int, b: int):
     resid = _orth_block(V[: l + nb * b], w - q @ a_last)
     bb = torch.stack(b_blocks) if b_blocks else q.new_zeros((0, b, b))
     return torch.stack(a_blocks), bb, resid
+
+
+def _read_cycle(a_blocks, b_blocks, flags=None):
+    """(a_blocks, b_blocks) in float64 on the host and whether any flag is
+    set, in one read."""
+    parts = [a_blocks.reshape(-1), b_blocks.reshape(-1)]
+    if flags is not None:
+        parts.append(flags.any().to(a_blocks.dtype)[None])
+    host = to_numpy(torch.cat(parts)).astype(np.float64)
+    n_a, n_b = a_blocks.numel(), b_blocks.numel()
+    flagged = flags is not None and bool(host[n_a + n_b])
+    return (host[:n_a].reshape(a_blocks.shape), host[n_a:n_a + n_b].reshape(b_blocks.shape),
+            flagged)
 
 
 def _refined_block(op, V, k: int, which: str):
@@ -333,6 +372,11 @@ def eigsh_block_restarted(
     host in float64.  Convergence is verified against the operator itself
     (Rayleigh–Ritz, ``restart._refine_host``).
 
+    On a card every cycle after the first replays a CUDA graph of the
+    speculative cycle (one capture per (l, nb, b, dtype)), and a cycle in
+    which a step broke down is run again eagerly with the cure
+    (``graphs.stats["redo"]`` counts them; see the module docstring).
+
     num_blocks: blocks per cycle (default max(ceil((2k + 20) / b), 4)).
     n_locked:   Ritz vectors carried across restarts (default k + max(b, 4)).
     seed:       the start block's ``torch.Generator`` seed (drawn on the CPU).
@@ -355,8 +399,13 @@ def eigsh_block_restarted(
             f"than the operator dimension {mdim}"
         )
 
-    q0 = _qr(_start_block(op, b, seed, dtype))[0]
+    # The cycle's inputs, at fixed addresses for the whole solve: the basis
+    # V, the start block q0 (the restart block is copied into it) and the
+    # steps' flags.
+    q0 = _qr(_start_block(op, b, seed, dtype))[0].contiguous()
     V = torch.zeros((mtot + 1, mdim), dtype=dtype, device=dev)
+    flags = torch.zeros((nb - 1, b + 1), dtype=torch.bool, device=dev)
+    graphs = CycleGraphs(op)
     theta = np.zeros(0)
     C = np.zeros((b, 0))
     l = 0
@@ -366,15 +415,21 @@ def eigsh_block_restarted(
 
     for cycle in range(max_cycles):
         cycles = cycle + 1
-        a_blocks, b_blocks, resid = _block_cycle(op.matmat, V, q0, l, nb, b)
+        a_blocks, b_blocks, resid = graphs.run(("block", l, nb, b, dtype), _block_cycle,
+                                               op.matmat, V, q0, l, nb, b, flags)
+        ab, bb, flagged = _read_cycle(a_blocks, b_blocks, flags)
+        if flagged:
+            # A step broke down: the cycle again from the same V[:l] and q0,
+            # checked and cured (the lax.cond's other branch).
+            graph_stats["redo"] += 1
+            a_blocks, b_blocks, resid = _block_cycle(op.matmat, V, q0, l, nb, b)
+            ab, bb, _ = _read_cycle(a_blocks, b_blocks)
         mt = l + nb * b
         B = np.zeros((mt, mt))
         if l:
             B[:l, :l] = np.diag(theta)
             B[l:l + b, :l] = C
             B[:l, l:l + b] = C.T
-        ab = to_numpy(a_blocks).astype(np.float64)
-        bb = to_numpy(b_blocks).astype(np.float64)
         for j in range(nb):
             B[l + j * b:l + (j + 1) * b, l + j * b:l + (j + 1) * b] = ab[j]
         for j in range(nb - 1):
@@ -405,7 +460,7 @@ def eigsh_block_restarted(
         theta = w_all[:l_new]
         C = S @ y_all[mt - b:, :l_new]
         l = l_new
-        q0 = q_res.contiguous()
+        q0.copy_(q_res)
 
         if not converged:
             continue

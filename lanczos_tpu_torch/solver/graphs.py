@@ -1,11 +1,13 @@
 """Restart cycles as CUDA graphs: the port's counterpart of the JAX
 package's compiled cycles (``lanczos_tpu/solver/arnoldi.py:_ks_cycle_jit``,
-``lanczos_tpu/solver/restart.py:_cycle_jit``, ``jax.jit`` with
+``lanczos_tpu/solver/restart.py:_cycle_jit``,
+``lanczos_tpu/solver/block.py:_block_cycle_jit``, ``jax.jit`` with
 ``static_argnames``).
 
-A Krylov–Schur or thick-restart cycle is m - l steps, each a matvec (~28
-launches on a CompositeV2), CGS2's GEMVs and the norms: thousands of small
-launches whose host work, eager, outlasts their device time.
+A Krylov–Schur, thick-restart or block cycle is m - l steps, each a matvec
+(~28 launches on a CompositeV2) or an SpMM, CGS2's GEMVs and the norms:
+thousands of small launches whose host work, eager, outlasts their device
+time.
 :class:`CycleGraphs` runs such a cycle as one ``torch.cuda.CUDAGraph``
 replay, which launches the very kernels of the eager body, in its order and
 with its arguments.
@@ -31,8 +33,14 @@ with its arguments.
   nothing, so what a capture added to the counts is taken back, and each
   replay adds it once (:func:`_take_back`, :meth:`_Graph.replay`).
 
-CPU tensors and row-sharded operators (whose collectives a graph does not
-hold on gloo) run the eager body on the current stream.  On a card a
+* A row-sharded operator over an NCCL group captures its collectives
+  with the cycle: each is a kernel on the group's stream, joined to the
+  capturing stream by events, with host-side split lists; the first
+  (eager) cycle has run every collective of the cycle, so the
+  communicator exists before the capture.  A gloo group's collectives run
+  on the host, so its operators (on the CPU) run the eager body.
+
+CPU tensors run the eager body on the current stream.  On a card a
 capture that fails raises; nothing falls back to the eager loop.
 """
 
@@ -48,15 +56,16 @@ __all__ = ["CycleGraphs", "capturable", "cycle_key", "eager", "reset_stats", "st
 
 #: Counts over every solver call since :func:`reset_stats`: the cycles
 #: run eagerly by a capturing solver, the graphs captured and their host
-#: seconds (capture and instantiation), the replays, and the static key of
-#: every cycle run, eager or replayed.
-stats = {"eager": 0, "captures": 0, "capture_s": 0.0, "replays": 0, "cycles": []}
+#: seconds (capture and instantiation), the replays, the block cycles run
+#: again with the breakdown cure (``solver/block.py``), and the static key
+#: of every cycle run, eager or replayed.
+stats = {"eager": 0, "captures": 0, "capture_s": 0.0, "replays": 0, "redo": 0, "cycles": []}
 
 _eager_only = False
 
 
 def reset_stats() -> None:
-    stats.update(eager=0, captures=0, capture_s=0.0, replays=0, cycles=[])
+    stats.update(eager=0, captures=0, capture_s=0.0, replays=0, redo=0, cycles=[])
 
 
 @contextlib.contextmanager
@@ -74,8 +83,11 @@ def eager():
 
 def capturable(op) -> bool:
     """True for an operator whose cycles run as graphs: on a CUDA device,
-    with no ``mesh``."""
-    return op.device.type == "cuda" and getattr(op, "mesh", None) is None
+    unsharded or row-sharded over an NCCL group."""
+    if op.device.type != "cuda":
+        return False
+    mesh = getattr(op, "mesh", None)
+    return mesh is None or mesh.backend == "nccl"
 
 
 def cycle_key(op, static: tuple) -> tuple:

@@ -270,3 +270,36 @@ def test_cuda_captured_cycles_equal_the_eager_ones(dtype):
             assert sk.stencil_spmv.launches - before == launched
         for name in ("eigenvalues", "eigenvectors", "residuals"):
             assert torch.equal(getattr(captured, name), getattr(plain, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_captured_block_cycles_equal_the_eager_ones(dtype):
+    """eigsh_block_restarted on the card: every block cycle after the first
+    replays a CUDA graph of the speculative cycle, and the result equals
+    the eager body's (graphs.eager()), bitwise; a rank-deficient operator
+    redoes its broken-down cycle eagerly and still equals the eager solve."""
+    from lanczos_tpu_torch.ops.operators import DenseOperator
+    from lanczos_tpu_torch.solver import graphs
+
+    _require_card()
+    H = pt.build_regular_hamiltonian(24, 25.0, pt.deuteron_potential_3d, stencil="27",
+                                     dtype=dtype, device="cuda")
+    B = np.random.default_rng(5).standard_normal((120, 10))
+    A = DenseOperator(torch.as_tensor(B @ B.T, dtype=dtype, device="cuda"))
+    solves = (
+        (lambda: pt.eigsh_block_restarted(H, k=4, block_size=4, tol=1e-4, max_cycles=30), 0),
+        (lambda: pt.eigsh_block_restarted(A, k=4, block_size=4, num_blocks=3, n_locked=4,
+                                          tol=1e-9, max_cycles=10, which="LA"), 1),
+    )
+    for solve, least_redo in solves:
+        graphs.reset_stats()
+        captured = solve()
+        torch.cuda.synchronize()
+        st = dict(graphs.stats)
+        assert len(st["cycles"]) >= 3 and st["redo"] >= least_redo
+        assert (st["eager"], st["captures"], st["replays"]) == (1, 1, len(st["cycles"]) - 1)
+        with graphs.eager():
+            plain = solve()
+        for name in ("eigenvalues", "eigenvectors", "residuals", "inner_prod"):
+            assert torch.equal(getattr(captured, name), getattr(plain, name)), name

@@ -31,6 +31,8 @@ from lanczos_tpu_torch.ops.operators import StencilOperator  # noqa: E402
 from lanczos_tpu_torch.solver import graphs  # noqa: E402
 from lanczos_tpu_torch.solver.arnoldi import _rotate_basis  # noqa: E402
 
+from torch_graph_stub import StubGraph, install, replay_counts  # noqa: E402
+
 
 def _mixed(pkg):
     sp = np.full(27, 2, dtype=np.int64)
@@ -146,68 +148,10 @@ def test_no_cuda_graph_is_built_on_the_cpu(monkeypatch, nonsym, stencil):
     pt.eigsh_restarted(ht, v0=v0, k=2, max_basis=12, tol=1e-6, max_cycles=3)
 
 
-class _StubGraph:
-    """Stands in for a captured graph: a replay runs the cycle's body
-    again on the same buffers and writes its results into the outputs
-    returned at capture, as a replay overwrites the graph's own outputs.
-    A cycle reads only what it does not write, so running it twice is
-    running it once."""
-
-    def __init__(self, body=None, args=(), outputs=()):
-        self.body, self.args, self.outputs = body, args, outputs
-        self.replays = 0
-
-    def capture_begin(self):
-        self.capturing = True
-
-    def capture_end(self):
-        self.capturing = False
-
-    def replay(self):
-        assert not getattr(self, "capturing", False)
-        self.replays += 1
-        if self.body is None:
-            return
-        new = self.body(*self.args)
-        for out, val in zip(*(o if isinstance(o, tuple) else (o,) for o in (self.outputs, new))):
-            out.copy_(val)
-
-
-class _StubStream:
-    def wait_stream(self, other):
-        pass
-
-
 @pytest.fixture
 def stub_cuda(monkeypatch):
-    """Runs CycleGraphs' card path on CPU tensors: the side stream and the
-    device switches do nothing, and a capture runs the body once and keeps
-    it in a _StubGraph."""
-    captured = []
-
-    def capture(body, args, stream):
-        before = graphs._launch_counts()
-        outputs = body(*args)
-        g = graphs._Graph(_StubGraph(body, args, outputs), graphs._pointers(args), outputs,
-                          graphs._take_back(before))
-        captured.append(g)
-        return g
-
-    monkeypatch.setattr(graphs, "capturable", lambda op: True)
-    monkeypatch.setattr(graphs, "_capture", capture)
-    monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: _StubStream())
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _StubStream())
-    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    graphs.reset_stats()
-    return captured
-
-
-def _replay_counts(eager_stats):
-    """(eager cycles, captures, replays) that the card path owes a solve
-    whose cycles' static keys were ``eager_stats['cycles']``."""
-    keys = eager_stats["cycles"]
-    return 1, len(set(keys[1:])), len(keys) - 1
+    """Runs CycleGraphs' card path on CPU tensors (``torch_graph_stub``)."""
+    return install(monkeypatch.setattr)
 
 
 def test_captured_eigs_nonsym_equals_eager_bitwise(stub_cuda, nonsym):
@@ -220,7 +164,7 @@ def test_captured_eigs_nonsym_equals_eager_bitwise(stub_cuda, nonsym):
         plain = pt.eigs_nonsym(C, v0=v2, **kw)
     assert graphs.stats["captures"] == graphs.stats["replays"] == graphs.stats["eager"] == 0
     assert seen["cycles"] == graphs.stats["cycles"] and len(seen["cycles"]) >= 3
-    assert (seen["eager"], seen["captures"], seen["replays"]) == _replay_counts(graphs.stats)
+    assert (seen["eager"], seen["captures"], seen["replays"]) == replay_counts(graphs.stats)
     assert seen["captures"] == len(stub_cuda)
     assert sum(g.graph.replays for g in stub_cuda) == seen["replays"]
     for name in ("eigenvalues", "eigenvectors", "residuals", "inner_prod"):
@@ -235,7 +179,7 @@ def test_captured_eigsh_restarted_equals_eager_bitwise(stub_cuda, stencil):
     with graphs.eager():
         plain = pt.eigsh_restarted(ht, v0=v0, **RESTART_KW)
     assert seen["cycles"] == graphs.stats["cycles"] and len(seen["cycles"]) >= 3
-    assert (seen["eager"], seen["captures"], seen["replays"]) == _replay_counts(graphs.stats)
+    assert (seen["eager"], seen["captures"], seen["replays"]) == replay_counts(graphs.stats)
     assert seen["captures"] == 1
     for name in ("eigenvalues", "eigenvectors", "residuals", "inner_prod"):
         assert torch.equal(getattr(captured, name), getattr(plain, name)), name
@@ -266,7 +210,7 @@ def test_a_weight_change_forces_an_eager_cycle_and_a_new_capture(stub_cuda):
 def test_replays_count_launches_per_graph(monkeypatch):
     """A capture's launches are taken back from the wrappers' counts; each
     replay adds them once (a stub graph: no card here)."""
-    stub = _StubGraph()
+    stub = StubGraph()
     monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: stub)
     monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
     wrappers = (sk.stencil_spmv, sk.stencil_spmm, ik.apply_fused_interface)

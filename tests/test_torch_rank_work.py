@@ -8,6 +8,7 @@ numpy results: a rank's rows of a vector, which the test concatenates in
 rank order, or values that every rank holds.
 """
 
+import contextlib
 import os
 
 import scipy.sparse
@@ -126,6 +127,50 @@ def composite_v1(mesh, case):
     x = _rows(op, op.host.to_sharded(case["x"]))
     return {"y": _np(op.matvec(x)), "vals": _np(res.eigenvalues),
             "resid": _np(res.residuals), "live": _np(op.live)}
+
+
+def sharded_graphs(mesh, case):
+    """The sharded solves through CycleGraphs' card path with stub graphs
+    (``torch_graph_stub``), each beside the same solve under
+    ``graphs.eager()``: eigsh_restarted on the z-slab stencil (plain and
+    compensated), eigs_nonsym on the sharded CompositeV2 and on the v1
+    composite.  Also whether ``capturable`` takes this (gloo) mesh."""
+    import types
+
+    from lanczos_tpu_torch.solver import graphs
+    from torch_graph_stub import install
+
+    out = {"backend": mesh.backend, "capturable": graphs.capturable(
+        types.SimpleNamespace(device=torch.device("cuda"), mesh=mesh))}
+    install()
+    h16 = shard_operator(_regular(16), mesh)
+    comp, _, _ = graph_laplacian_v2(24, dtype=torch.float64, device="cpu")
+    v2 = shard_composite_v2(comp, mesh, degenerate_frac=10.0)
+    lat = pt.build_lattice(12, 25.0, 3, overwrite_spacing=True)
+    v1 = shard_operator(pt.assemble_irregular_hamiltonian_composite(
+        lat, pt.deuteron_potential_3d, dtype=torch.float64, device="cpu")[0], mesh)
+    solves = {
+        name: (lambda op=op, kw=kw: solver(op, **kw))
+        for name, solver, op, kw in (
+            ("restarted", eigsh_restarted, h16, case["restarted"]),
+            ("restarted_compensated", eigsh_restarted, h16,
+             dict(case["restarted"], compensated=True)),
+            ("nonsym_v2", pt.eigs_nonsym, v2,
+             dict(case["nonsym_v2"], v0=v2.host.to_sharded(case["v0_24"]))),
+            ("nonsym_v1", pt.eigs_nonsym, v1, case["nonsym_v1"]),
+        )
+    }
+    for name, solve in solves.items():
+        runs = {}
+        for mode in ("captured", "eager"):
+            graphs.reset_stats()
+            with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+                res = solve()
+            runs[mode] = {"vals": _np(res.eigenvalues), "vecs": _np(res.eigenvectors),
+                          "resid": _np(res.residuals), "inner": _np(res.inner_prod),
+                          "stats": {k: v for k, v in graphs.stats.items()}}
+        out[name] = runs
+    return out
 
 
 def row_sum(mesh):
