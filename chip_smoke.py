@@ -71,7 +71,12 @@ The north-star path (compensated reductions, thick restart, refinement):
     + 10 buffer pairs, fp32 tol 3e-7, refinement tol 1e-8): the 100
     eigenvalues against scipy ``eigsh(L + I, k=110, "SA", tol=1e-12)``
     (atol 1e-8) and the true fp64 residuals (<= 3e-8 relative to the
-    shifted eigenvalue); then each kernel against its plain version at the
+    shifted eigenvalue); the refinement's units (``solver/refine.py``, one
+    CUDA graph per unit and width on the card) replayed on every call after
+    the first of their key, and the refinement run again from the same
+    float32 pairs under ``graphs.eager()``: eigenvalues, relative residuals
+    and vectors bitwise equal, both walls, captures, replays and capture
+    seconds printed; then each kernel against its plain version at the
     shapes this operator gives it (below).
 15. The same pipeline at n_fine=216 (1,586,304 points), with each stage's
     wall, cycles, peak memory and every kernel's launches by dtype: the
@@ -82,7 +87,11 @@ The north-star path (compensated reductions, thick restart, refinement):
     SpMV in fp32 and fp64 and the SpMM at b=8 in fp32 on each level grid,
     the interface kernel in fp32 at b=1 and 8 and in fp64 at b=1; phase
     3's tolerances); the device busy share (``torch.profiler``) of one
-    restart cycle and of one refinement round; and the kernel, plain and
+    restart cycle and of one refinement round (``max_rounds=1, tol=0``),
+    each captured and eager: the round's unprofiled wall, device busy
+    share, peak memory, captures, capture seconds and replays, its results
+    bitwise equal between the two, and each kernel's launches in one
+    replayed correction chunk (the profiler's count); and the kernel, plain and
     cuSPARSE times of the interface kernel (fp32, fp64), the SpMV (fp32,
     fp64) and the SpMM at b=8 (fp32) on the lattice's level grids.  The
     restart cycles run as CUDA graphs; the busy share of one cycle is taken
@@ -91,7 +100,10 @@ The north-star path (compensated reductions, thick restart, refinement):
     ``refine_eigenpairs_dd_nonsym`` of its pairs, against the N=60 golden;
     every refined pair of a complete cluster (one that does not hold the
     highest computed pair; the 2.514/2.524 cluster only when all five of
-    its copies are there) at a relative residual <= 1e-8.
+    its copies are there) at a relative residual <= 1e-8.  The refinement
+    runs captured (every unit call after the first of its key a replay)
+    and again under ``graphs.eager()``: both walls, the results bitwise
+    equal.
 
 The block solver, look-ahead, the CLI and the benchmark:
 
@@ -192,6 +204,7 @@ sharded launch counts and slab times); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import contextlib
 import gc
 import itertools
@@ -1024,6 +1037,36 @@ def graph_stats():
     return dict(graphs.stats, cycles=list(graphs.stats["cycles"]))
 
 
+def graph_stats_since(before):
+    """What was added to ``graphs.stats`` since ``before`` (graph_stats())."""
+    now = graph_stats()
+    return dict({k: now[k] - before[k] for k in ("eager", "captures", "capture_s", "replays")},
+                cycles=now["cycles"][len(before["cycles"]):])
+
+
+def hold_unit_replays(label, st):
+    """Print a refinement's unit calls by key and its graph counts, and fail
+    unless every call after the first of its key replayed a graph (the
+    refinement's CycleGraphs runs each key's first call eagerly and
+    captures its second)."""
+    keys = collections.Counter(st["cycles"])
+    want = (len(keys), sum(n > 1 for n in keys.values()), sum(n - 1 for n in keys.values()))
+    got = (st["eager"], st["captures"], st["replays"])
+    calls = ", ".join(f"{' '.join(map(str, key))}: {n}" for key, n in keys.items())
+    print(f"  {label}: {len(st['cycles'])} unit calls ({calls}); eager {got[0]}, graphs captured "
+          f"{got[1]} in {st['capture_s']:.3f} s, replays {got[2]}")
+    check(got == want, f"{label}: not every unit call after the first of its key replayed a "
+          f"graph: (eager, captures, replays) {got}, owed {want}")
+
+
+def same_arrays(pairs):
+    """(all bitwise equal, largest |diff|) over (a, b) pairs of arrays or tensors."""
+    pairs = [tuple(np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t) for t in p)
+             for p in pairs]
+    return (all(np.array_equal(a, b) for a, b in pairs),
+            max(float(np.abs(a.astype(np.float64) - b).max()) for a, b in pairs))
+
+
 def max_diff(a, b):
     """Largest |a - b| over the cycles both runs have, and whether they had
     as many."""
@@ -1461,33 +1504,47 @@ def phase_northstar_small(mesh=None, ref=None, unsharded=None):
     import scipy.sparse
     import scipy.sparse.linalg
 
-    from lanczos_tpu_torch.solver import graphs, restart
+    from lanczos_tpu_torch.solver import graphs, refine, restart
 
     print(f"== north-star pipeline at n_fine=72 (k=100 + 10, fp32 tol 3e-7, refinement tol "
           f"1e-8{'; the fp32 solve row-sharded over ' + repr(mesh) if mesh else ''}) vs scipy "
           "eigsh(L + I, k=110, 'SA', tol=1e-12)")
     reset_launches()
     graphs.reset_stats()
-    # The fp32 solve's eigenvalues, kept for the comparison with its eager
-    # cycles (the pipeline keeps only the refined pairs).
-    solved = []
-    solver = restart.eigsh_restarted
+    # The fp32 solve's eigenvalues, graph counts and cycle marks (the
+    # refinement's units follow them in graphs.stats and the marks), and
+    # the refinement's start, result, wall and graph counts, kept for the
+    # comparisons with eager runs (the pipeline keeps only the refined
+    # pairs).
+    solved, refined = [], []
+    solver, refiner = restart.eigsh_restarted, refine.refine_eigenpairs_dd_hosted
 
     def keep(*args, **kw):
         res = solver(*args, **kw)
-        solved.append(res.eigenvalues.cpu().numpy())
+        solved.append((res.eigenvalues.cpu().numpy(), graph_stats(), len(marks)))
         return res
 
-    restart.eigsh_restarted = keep
+    def keep_refined(op, lam, X64, **kw):
+        start, before = (np.array(lam, np.float64), np.array(X64, np.float64)), graph_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = refiner(op, lam, X64, **kw)
+        torch.cuda.synchronize()
+        refined.append(dict(op=op, start=start, kw=kw, out=out, wall=time.perf_counter() - t0,
+                            stats=graph_stats_since(before)))
+        return out
+
+    restart.eigsh_restarted, refine.refine_eigenpairs_dd_hosted = keep, keep_refined
     try:
         with cycle_clock() as marks:
             t0 = time.perf_counter()
             info, extra = _northstar().run(n_fine=72, device="cuda", verbose=False, mesh=mesh)
             wall = time.perf_counter() - t0
     finally:
-        restart.eigsh_restarted = solver
+        restart.eigsh_restarted, refine.refine_eigenpairs_dd_hosted = solver, refiner
     launches = read_launches()
-    st = graph_stats()
+    solved_vals, st, n_marks = solved[0]
+    marks = marks[:n_marks]
     info["graphs"] = {key: st[key] for key in ("eager", "captures", "capture_s", "replays")}
     _, info["cycle_wall_s"] = cycle_walls(marks, "replay")
     print(f"  {info['num_points']} points, M = {info['m_operator']}, {info['n_interface_classes']} "
@@ -1497,6 +1554,10 @@ def phase_northstar_small(mesh=None, ref=None, unsharded=None):
           f"{info['t_refine_s']:.2f} s)")
     check(st["eager"] == 1 and st["replays"] == len(st["cycles"]) - 1,
           f"n_fine=72{' sharded' if mesh else ''}: not every cycle after the first replayed: {st}")
+    hold_unit_replays(f"n_fine=72 refinement{' (after the sharded solve)' if mesh else ''}",
+                      refined[0]["stats"])
+    if mesh is None:
+        info["refine_graphs"] = refine_against_eager(refined[0], refiner)
     check(info["refine_completed"], f"n_fine=72 refinement failed: {info.get('refine_error')}")
     L = extra["L"]
     t0 = time.perf_counter()
@@ -1527,9 +1588,35 @@ def phase_northstar_small(mesh=None, ref=None, unsharded=None):
         worst = max(hold_sharded_levels(shard_operator(o, mesh), "n_fine=72", gen)
                     for o in (extra["op"], to_float64(extra["op"])))
         info["against_eager"] = sharded_n72_against_eager(
-            mesh, info, extra, (info["t_solve_fp32_s"], st, marks, solved[0]), unsharded)
+            mesh, info, extra, (info["t_solve_fp32_s"], st, marks, solved_vals), unsharded)
         return {"stencil_spmv": worst}, ref, launches, info
     return check_operator_kernels(extra["op"], "n_fine=72"), ref, launches, info
+
+
+def refine_against_eager(captured, refiner):
+    """Phase 14's refinement (``captured``: its start, arguments, result,
+    wall and graph counts, kept as the pipeline ran it) again under
+    ``graphs.eager()`` from the same float32 pairs: the refined
+    eigenvalues, relative residuals and vectors must be bitwise equal."""
+    from lanczos_tpu_torch.solver import graphs
+
+    lam0, X0 = captured["start"]
+    with graphs.eager():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = refiner(captured["op"], lam0.copy(), X0.copy(), **captured["kw"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    lam, X, rel = captured["out"]
+    same, diff = same_arrays([(lam, eager[0]), (rel, eager[2]), (X, eager[1])])
+    st = captured["stats"]
+    print(f"  n_fine=72 refinement: captured {captured['wall']:.3f} s (graphs captured "
+          f"{st['captures']} in {st['capture_s']:.3f} s, replays {st['replays']}), eager "
+          f"{wall:.3f} s; captured - eager: eigenvalues, relative residuals and vectors "
+          f"{'bitwise equal' if same else f'differ by up to {diff:.3e}'}")
+    check(same, "n_fine=72: the captured refinement differs from the eager one")
+    return dict(captured_s=captured["wall"], eager_s=wall, bitwise_equal=same,
+                **{k: st[k] for k in ("eager", "captures", "capture_s", "replays")})
 
 
 def sharded_n72_against_eager(mesh, info, extra, captured, unsharded):
@@ -1739,15 +1826,17 @@ def cycle_walls(marks, kind):
 
 
 def northstar_busy_shares(info, extra):
-    """Device busy share of one restart cycle, captured (the replay of a
-    CUDA graph) and eager (``graphs.eager()``), and of one refinement
-    round (under the profiler).  A cycle is m - l steps from the
-    locked block, the host eigh of the arrowhead and the Ritz rotation: its
-    device time is the third cycle of a run (cycle_profile), its wall the
-    median of cycles 2 and 3 of a 5-cycle run (cycle 0 from the start
-    vector, cycle 1 the capture of l = n_locked; cycle_clock).  The round is
-    ``max_rounds=1, tol=0``: a residual sweep, the Rayleigh-Ritz rotation,
-    the deflated CG of every chunk, and the closing residual sweep."""
+    """Device busy share of one restart cycle and of one refinement round,
+    each captured (CUDA graph replays) and eager (``graphs.eager()``).  A
+    cycle is m - l steps from the locked block, the host eigh of the
+    arrowhead and the Ritz rotation: its device time is the third cycle of
+    a run (cycle_profile), its wall the median of cycles 2 and 3 of a
+    5-cycle run (cycle 0 from the start vector, cycle 1 the capture of l =
+    n_locked; cycle_clock).  The round is ``max_rounds=1, tol=0``: a
+    residual sweep, the Rayleigh-Ritz rotation, the deflated CG of every
+    chunk, and the closing residual sweep; its wall and peak memory are
+    taken unprofiled, its device time in a second run under the profiler.
+    The captured round's results must equal the eager round's bitwise."""
     from lanczos_tpu_torch.solver import graphs
     from lanczos_tpu_torch.solver.refine import refine_eigenpairs_dd_hosted
     from lanczos_tpu_torch.solver.restart import eigsh_restarted
@@ -1769,27 +1858,103 @@ def northstar_busy_shares(info, extra):
             peaks[mode] = torch.cuda.max_memory_allocated()
             busy, _ = cycle_profile(lambda c: eigsh_restarted(op, max_cycles=c, **kw))
         _, wall = cycle_walls(marks, kind)
-        out[f"restart_cycle_{mode}"] = (wall, None, busy)
-    lam, X = extra["lam_shifted"], extra["X64"]
-
-    def refine_round():
-        refine_eigenpairs_dd_hosted(op, lam, X.copy(), tol=0.0, max_rounds=1, cg_steps=200,
-                                    col_chunk=8, k_report=info["k"])
-
-    out["refine_round"] = (None, *busy_share(refine_round))
-    for name, (wall, pwall, busy) in out.items():
-        if pwall is None:  # a cycle: its device time against its unprofiled wall
-            print(f"  {name}: {wall:.3f} s (the cycle and the host work to the next), device "
-                  f"busy {busy:.3f} s ({busy / wall:.1%})")
-            continue
-        print(f"  {name}: under the profiler {pwall:.3f} s with the device busy {busy:.3f} s "
-              f"({busy / pwall:.1%} of the profiled wall; not timed unprofiled)")
+        out[f"restart_cycle_{mode}"] = (wall, busy)
+    for name, (wall, busy) in out.items():
+        print(f"  {name}: {wall:.3f} s (the cycle and the host work to the next), device "
+              f"busy {busy:.3f} s ({busy / wall:.1%})")
     print(f"  peak device memory of a 5-cycle solve: captured {peaks['captured'] / 2**30:.3f} "
           f"GiB, eager {peaks['eager'] / 2**30:.3f} GiB")
-    shares = {name: dict(wall_s=w, profiled_wall_s=p, device_busy_s=b)
-              for name, (w, p, b) in out.items()}
-    shares["peak_3_cycles_gib"] = {k: v / 2**30 for k, v in peaks.items()}
+    shares = {name: dict(wall_s=w, device_busy_s=b) for name, (w, b) in out.items()}
+    shares["peak_5_cycles_gib"] = {k: v / 2**30 for k, v in peaks.items()}
+
+    lam, X = extra["lam_shifted"], extra["X64"]
+    rkw = dict(tol=0.0, max_rounds=1, cg_steps=200, col_chunk=8, k_report=info["k"])
+
+    def refine_round():
+        return refine_eigenpairs_dd_hosted(op, lam, X.copy(), **rkw)
+
+    rounds, results = {}, {}
+    for mode in ("captured", "eager"):
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            graphs.reset_stats()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            results[mode] = refine_round()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            st = graph_stats()
+            pwall, busy = busy_share(refine_round)
+        rounds[mode] = dict(wall_s=wall, profiled_wall_s=pwall, device_busy_s=busy,
+                            peak_gib=peak / 2**30, base_gib=base / 2**30,
+                            **{k: st[k] for k in ("eager", "captures", "capture_s", "replays")},
+                            unit_calls=len(st["cycles"]))
+        print(f"  refine_round_{mode}: {wall:.3f} s unprofiled, device busy {busy:.3f} s "
+              f"({busy / wall:.1%}; under the profiler {pwall:.3f} s); peak device memory "
+              f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above the "
+              f"{base / 2**30:.3f} GiB held before it)")
+        if mode == "captured":
+            hold_unit_replays("n_fine=216 refinement round", st)
+    same, diff = same_arrays([(a, b) for a, b in zip(results["captured"], results["eager"])])
+    ratio = rounds["captured"]["peak_gib"] / rounds["eager"]["peak_gib"]
+    print(f"  refinement round captured - eager: eigenvalues, vectors and relative residuals "
+          f"{'bitwise equal' if same else f'differ by up to {diff:.3e}'}; wall "
+          f"{rounds['captured']['wall_s'] / rounds['eager']['wall_s']:.3f}x, peak memory "
+          f"{ratio:.3f}x the eager round's")
+    check(same, "n_fine=216: the captured refinement round differs from the eager one")
+    shares["refine_round"] = rounds
+    shares["refine_chunk_launches"] = refine_chunk_launches(refine_round)
     return shares
+
+
+class _Stop(Exception):
+    """Ends a run once its profiled unit has run."""
+
+
+def refine_chunk_launches(refine_round, key=("cg", 200, 8, torch.float32), index=2):
+    """Each kernel's launches and device time, under the profiler, in one
+    replayed correction chunk of a refinement round: call ``index`` of
+    ``key`` (call 0 runs eagerly, call 1 is the capture); the round stops
+    after it."""
+    from lanczos_tpu_torch.solver import graphs
+
+    run = graphs.CycleGraphs.run
+    calls, out = [], {}
+    # The port's kernels, then cuBLAS's and PyTorch's by name fragment.
+    kernels = ("spmv_kernel", "spmm_kernel", "interface_kernel", "gemm", "gemv", "splitK",
+               "native::reduce_kernel", "elementwise_kernel")
+
+    def profiled(self, static, body, *args):
+        if static != key:
+            return run(self, static, body, *args)
+        calls.append(static)
+        if len(calls) - 1 != index:
+            return run(self, static, body, *args)
+        replays = graphs.stats["replays"]
+        _, out["busy"], out["found"] = busy_share(lambda: run(self, static, body, *args), kernels)
+        out["replayed"] = graphs.stats["replays"] == replays + 1
+        out["wrappers"] = {w.__name__: n for w, (n, _) in
+                           zip(graphs._wrappers(), self._graphs[static].launches)}
+        raise _Stop
+
+    graphs.CycleGraphs.run = profiled
+    try:
+        refine_round()
+    except _Stop:
+        pass
+    finally:
+        graphs.CycleGraphs.run = run
+    check(out.get("replayed"), f"the refinement's correction call {index} was not a replay")
+    found = {name: dict(launches=n, device_s=t) for name, (n, t) in out["found"].items()}
+    print(f"  one replayed correction chunk (b=8, 200 CG steps): device time {out['busy']:.4f} s; "
+          "kernels whose names hold "
+          + ", ".join(f"{name} {v['launches']} launches, {v['device_s'] * 1e3:.2f} ms"
+                      for name, v in found.items())
+          + f" (the profiler's count; the graph holds {json.dumps(out['wrappers'])} by the "
+          "wrappers' count)")
+    return dict(device_s=out["busy"], kernels=found, graph_launches=out["wrappers"])
 
 
 def check_operator_kernels(op, label):
@@ -1910,6 +2075,7 @@ NONSYM_REFINE_K = 8
 
 
 def phase_nonsym_refine(lt, lat):
+    from lanczos_tpu_torch.solver import graphs
     from lanczos_tpu_torch.solver.refine import refine_eigenpairs_dd_nonsym
 
     print(f"== eigs_nonsym(compensated=True, k={NONSYM_REFINE_K}) at N=60 (fp32) and "
@@ -1933,12 +2099,27 @@ def phase_nonsym_refine(lt, lat):
     inside = vals <= top
     check_against("N=60 fp32 compensated vs fp64 golden", vals[inside], resid[inside], golden,
                   EPS32, norms, c["tol"])
-    t0 = time.perf_counter()
-    lam, Xh, Xl, rel = refine_eigenpairs_dd_nonsym(op, vals, res.eigenvectors, tol=1e-9,
-                                                   max_rounds=8, cg_steps=60)
-    torch.cuda.synchronize()
-    print(f"  refine_eigenpairs_dd_nonsym {time.perf_counter() - t0:.2f} s: relative residuals "
-          f"{np.array2string(rel, precision=3)} (against the fp32-stored operator)")
+    walls, refined = {}, {}
+    for mode in ("captured", "eager"):
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            before = graph_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            refined[mode] = refine_eigenpairs_dd_nonsym(op, vals, res.eigenvectors, tol=1e-9,
+                                                        max_rounds=8, cg_steps=60)
+            torch.cuda.synchronize()
+            walls[mode] = time.perf_counter() - t0
+        if mode == "captured":
+            hold_unit_replays("refine_eigenpairs_dd_nonsym", graph_stats_since(before))
+    lam, Xh, Xl, rel = refined["captured"]
+    same, diff = same_arrays(list(zip(refined["captured"], refined["eager"])))
+    print(f"  refine_eigenpairs_dd_nonsym captured {walls['captured']:.3f} s, eager "
+          f"{walls['eager']:.3f} s ({walls['eager'] / walls['captured']:.2f}x); captured - eager: "
+          f"eigenvalues, vectors and relative residuals "
+          f"{'bitwise equal' if same else f'differ by up to {diff:.3e}'}")
+    check(same, "N=60: the captured refinement differs from the eager one")
+    print(f"  relative residuals {np.array2string(rel, precision=3)} (against the fp32-stored "
+          "operator)")
     check(bool(np.isfinite(lam).all() and np.isfinite(rel).all()), "refined pairs not finite")
     # Clusters: sorted neighbours within 1% of max(|lam|, 1).  A cluster
     # that holds the highest computed pair may have members beyond k, which

@@ -2,7 +2,9 @@
 package's compiled cycles (``lanczos_tpu/solver/arnoldi.py:_ks_cycle_jit``,
 ``lanczos_tpu/solver/restart.py:_cycle_jit``,
 ``lanczos_tpu/solver/block.py:_block_cycle_jit``, ``jax.jit`` with
-``static_argnames``).
+``static_argnames``) and of the refinement's compiled units
+(``lanczos_tpu/solver/refine.py:_deflated_cg``, ``_deflated_bicgstab``,
+``_dd_residual_cols``; ``solver/refine.py`` here).
 
 A Krylov–Schur, thick-restart or block cycle is m - l steps, each a matvec
 (~28 launches on a CompositeV2) or an SpMM, CGS2's GEMVs and the norms:
@@ -15,7 +17,10 @@ with its arguments.
 * The first cycle of a solver call runs eagerly on a side stream, as
   PyTorch asks before a capture: it fills every kernel's launch cache and
   cuBLAS's handle and workspace for that stream.  So does the first cycle
-  after the operator's tensors changed.
+  after the operator's tensors changed.  A caller whose units differ in
+  what they launch (the refinement: a residual on the float64 operator,
+  a solve on the float32 one, a narrower tail chunk) asks for
+  ``warm_each_key``: the first call of each static key runs eagerly.
 * Every later cycle replays a graph captured on that stream the first time
   its static arguments (the caller's key: l, m, reorth_passes, compensated,
   dtype) were seen with the operator's tensors as they are.  The key holds
@@ -28,7 +33,9 @@ with its arguments.
   outputs belong to the graph, overwritten by the next replay, so the
   caller reads or copies them first.
 * The graphs belong to one solver call and go with it, so no graph
-  outlives the operator whose pointers it holds.
+  outlives the operator whose pointers it holds.  They share one memory
+  pool: what one capture frees, the next may take, which is safe because
+  every caller reads a graph's outputs before it runs another.
 * The kernel wrappers count a launch where they launch; a capture launches
   nothing, so what a capture added to the counts is taken back, and each
   replay adds it once (:func:`_take_back`, :meth:`_Graph.replay`).
@@ -146,16 +153,17 @@ class _Graph:
         return self.outputs
 
 
-def _capture(body, args, stream) -> _Graph:
-    """Capture ``body(*args)`` on ``stream``; the launch counts are left as
-    they were.  ``torch.cuda.graph`` would also empty the allocator's cache
-    first, which costs the next allocations a ``cudaMalloc`` each, on every
+def _capture(body, args, stream, pool=None) -> _Graph:
+    """Capture ``body(*args)`` on ``stream`` into memory pool ``pool`` (a
+    new one when None); the launch counts are left as they were.
+    ``torch.cuda.graph`` would also empty the allocator's cache first,
+    which costs the next allocations a ``cudaMalloc`` each, on every
     capture of a solve."""
     graph = torch.cuda.CUDAGraph()
     before = _launch_counts()
     try:
         with torch.cuda.stream(stream):
-            graph.capture_begin()
+            graph.capture_begin(pool=pool)
             try:
                 outputs = body(*args)
             finally:
@@ -166,15 +174,21 @@ def _capture(body, args, stream) -> _Graph:
 
 
 class CycleGraphs:
-    """The captured cycles of one solver call on ``op`` (see the module
-    docstring).  :meth:`run` runs one cycle."""
+    """The captured cycles of one solver call on ``op`` and the operators
+    ``more`` it also applies (see the module docstring).  :meth:`run` runs
+    one cycle; with ``warm_each_key`` each static key's first cycle runs
+    eagerly."""
 
-    def __init__(self, op):
+    def __init__(self, op, *more, warm_each_key: bool = False):
         self.op = op
+        self.ops = tuple({id(o): o for o in (op, *more)}.values())
+        self.warm_each_key = warm_each_key
         self.enabled = capturable(op) and not _eager_only
         self.stream = torch.cuda.Stream(device=op.device) if self.enabled else None
         self._graphs = {}
         self._warm = None
+        self._warm_keys = set()
+        self._pool = None
 
     def run(self, static: tuple, body, *args):
         """``body(*args)``, one cycle; ``static`` names every argument that
@@ -184,18 +198,25 @@ class CycleGraphs:
         stats["cycles"].append(static)
         if not self.enabled:
             return body(*args)
-        static, opkey = cycle_key(self.op, static)
+        opkey = tuple(cycle_key(o, ())[1] for o in self.ops)
         if opkey != self._warm:
             self._graphs.clear()
+            self._warm_keys.clear()
+            self._warm, self._pool = opkey, None
+            first = True
+        else:
+            first = self.warm_each_key and static not in self._warm_keys
+        if first:
             out = self._eager(body, args)
-            self._warm = opkey
+            self._warm_keys.add(static)
             stats["eager"] += 1
             return out
         entry = self._graphs.get(static)
         if entry is None:
             t0 = time.perf_counter()
             with torch.cuda.device(self.op.device):
-                entry = self._graphs[static] = _capture(body, args, self.stream)
+                entry = self._graphs[static] = _capture(body, args, self.stream, self._pool)
+            self._pool = entry.graph.pool()
             stats["captures"] += 1
             stats["capture_s"] += time.perf_counter() - t0
         with torch.cuda.device(self.op.device):

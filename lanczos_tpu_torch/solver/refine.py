@@ -17,6 +17,14 @@ residual), each round
   ``matmat`` (on a card the SpMM kernel; the correction is ~1e-7 small,
   so float32 loses nothing), then x_i <- (x_i + d_i) / ||x_i + d_i||.
 
+The JAX package compiles each unit of a round (the chunk residual, the
+deflated CG or BiCGStab fed by it) with ``jax.jit``.  Here they run
+through ``solver/graphs.py:CycleGraphs``: on a card each unit's first call
+of a width runs eagerly, its second is captured as a CUDA graph, and every
+later one replays it, on fixed buffers (the block X, which the rotation
+and normalization update in place, its float32 copy X32, a chunk and its
+shifts).  The eager bodies are the CPU path and the reference.
+
 The JAX package keeps the vectors as float32 (hi, lo) pairs because the TPU
 has no fast float64; here they are float64 on the device, which the H100
 runs at full rate.  The functions keep the JAX package's signatures and
@@ -37,6 +45,7 @@ import torch
 
 from .._util import to_numpy
 from ..ops.dd import apply_columns, to_float64
+from .graphs import CycleGraphs
 
 __all__ = [
     "refine_eigenpairs_dd",
@@ -121,14 +130,85 @@ def _deflated_bicgstab(op, X, lam, R, steps: int):
 
 
 def _residual(op64, X, lam):
-    """R = A X - X diag(lam) in float64 for a float64 (M, k) block X.
-
-    Returns (R, corr, rel) with corr = x.r / x.x per column (host) and
-    rel = ||r|| / ||x|| (host)."""
-    R = apply_columns(op64, X) - X * torch.as_tensor(lam, dtype=X.dtype, device=X.device)[None, :]
+    """The residual body on the device (the JAX package's
+    ``_dd_residual_cols``): R = A X - X diag(lam) in float64 for a float64
+    (M, w) block X and float64 shifts lam (w,) on X's device, with
+    corr = x.r / x.x and rel = ||r|| / ||x|| per column, all device
+    tensors."""
+    R = apply_columns(op64, X) - X * lam[None, :]
     xx = _col_dots(X, X)
-    return (R, to_numpy(_col_dots(X, R) / xx),
-            to_numpy(torch.sqrt(_col_dots(R, R) / xx)))
+    return R, _col_dots(X, R) / xx, torch.sqrt(_col_dots(R, R) / xx)
+
+
+def _residual_unit(op64, X, Xc, lam):
+    """One residual unit: (X^T R, corr, rel) of the chunk Xc of X at lam
+    (the rotation's columns C = X^T R come with it)."""
+    R, corr, rel = _residual(op64, Xc, lam)
+    return X.T @ R, corr, rel
+
+
+def _correction_unit(op, op64, solve, steps, X32, Xc, lam):
+    """The residual of chunk Xc fed straight into the deflated solve (the
+    JAX package's ``fused_unit``): lam + corr is added in float64 and
+    rounded to the solve's dtype, as the host's ``lam += corr`` and cast
+    would.  Returns (D, corr, rel)."""
+    R, corr, rel = _residual(op64, Xc, lam)
+    dt = X32.dtype
+    return solve(op, X32, (lam + corr).to(dt), R.to(dt), steps), corr, rel
+
+
+class _Units:
+    """The refinement's compiled units on fixed buffers: the float32
+    deflation block X32 (M, k), a float64 chunk Xc (M, w) and its shifts,
+    written with ``copy_`` before each unit runs (through
+    ``solver/graphs.py:CycleGraphs``, one graph per unit and width on a
+    card)."""
+
+    def __init__(self, op, op64, X, col_chunk, steps, symmetric):
+        m, k = X.shape
+        w = min(col_chunk, k)
+        self.op, self.op64, self.X, self.steps = op, op64, X, steps
+        self.solve = _deflated_cg if symmetric else _deflated_bicgstab
+        self.name = "cg" if symmetric else "bicgstab"
+        self.X32 = torch.empty((m, k), dtype=op.dtype, device=X.device)
+        self._xc = X if w == k else torch.empty(m * w, dtype=X.dtype, device=X.device)
+        self._lam = torch.empty(w, dtype=X.dtype, device=X.device)
+        self.graphs = CycleGraphs(op, op64, warm_each_key=True)
+
+    def _chunk(self, lam, lo, hi):
+        w = hi - lo
+        lam_c = self._lam[:w]
+        lam_c.copy_(torch.from_numpy(lam[lo:hi]))
+        if self._xc is self.X:
+            return self.X, lam_c
+        Xc = self._xc[:self.X.shape[0] * w].view(-1, w)
+        Xc.copy_(self.X[:, lo:hi])
+        return Xc, lam_c
+
+    def residual(self, lam, lo, hi):
+        """(X^T R as a device tensor, corr, rel on the host) of columns lo:hi."""
+        Xc, lam_c = self._chunk(lam, lo, hi)
+        C, corr, rel = self.graphs.run(("residual", hi - lo), _residual_unit, self.op64, self.X,
+                                       Xc, lam_c)
+        return C, to_numpy(corr), to_numpy(rel)
+
+    def correction(self, lam, lo, hi):
+        """(D, corr on the host) of columns lo:hi, deflated against X32."""
+        Xc, lam_c = self._chunk(lam, lo, hi)
+        D, corr, _ = self.graphs.run((self.name, self.steps, hi - lo, self.op.dtype),
+                                     _correction_unit, self.op, self.op64, self.solve,
+                                     self.steps, self.X32, Xc, lam_c)
+        return D, to_numpy(corr)
+
+
+def _rotate(X, Z, rows: int = 1 << 23):
+    """X <- X Z in place, a block of rows at a time (no second (M, k)
+    block; ``rows`` elements of X a block), so X keeps its address."""
+    Zt = torch.as_tensor(Z, dtype=X.dtype, device=X.device)
+    step = max(1, rows // X.shape[1])
+    for r0 in range(0, X.shape[0], step):
+        X[r0:r0 + step] = X[r0:r0 + step] @ Zt
+    return X
 
 
 def _rayleigh_ritz(C, G, lam_pre, symmetric: bool):
@@ -189,19 +269,21 @@ def _realify(mu, Z):
 
 
 def _normalize_columns(X):
-    return X / torch.linalg.vector_norm(X, dim=0)[None, :]
+    """Each column of X divided by its norm, in place."""
+    return X.div_(torch.linalg.vector_norm(X, dim=0)[None, :])
 
 
 def _refine_block(op, lam, X, *, tol, max_rounds, cg_steps, verbose, symmetric, label):
     """The outer loop of refine_eigenpairs_dd and _nonsym on a float64
-    block X (M, k) on ``op``'s device; returns (lam, X, rel)."""
-    op64 = to_float64(op)
-    solve = _deflated_cg if symmetric else _deflated_bicgstab
-    dt = op.dtype
+    block X (M, k) on ``op``'s device, updated in place; returns (lam, X,
+    rel).  A round is two units, the residual and the correction, each on
+    the whole block."""
+    units = _Units(op, to_float64(op), X, X.shape[1], cg_steps, symmetric)
+    k = X.shape[1]
     lam = np.asarray(lam, np.float64).copy()
     for rnd in range(max_rounds):
-        R, corr, relr = _residual(op64, X, lam)
-        C = to_numpy(X.T @ R)
+        C, corr, relr = units.residual(lam, 0, k)
+        C = to_numpy(C)
         lam_pre = lam.copy()
         lam = lam + corr
         rel = relr / np.maximum(np.abs(lam), 1e-30)
@@ -211,15 +293,14 @@ def _refine_block(op, lam, X, *, tol, max_rounds, cg_steps, verbose, symmetric, 
             break
         # In-span Rayleigh-Ritz rotation (cluster mixing).
         mu, Z = _rayleigh_ritz(C, to_numpy(X.T @ X), lam_pre, symmetric)
-        X = X @ torch.as_tensor(Z, dtype=X.dtype, device=X.device)
+        _rotate(X, Z)
         lam = np.asarray(mu, np.float64)
         # Out-of-span correction at the rotated block.
-        R, corr, _ = _residual(op64, X, lam)
+        units.X32.copy_(X)
+        D, corr = units.correction(lam, 0, k)
         lam = lam + corr
-        D = solve(op, X.to(dt), torch.as_tensor(lam, dtype=dt, device=X.device), R.to(dt),
-                  cg_steps)
-        X = _normalize_columns(X + D.double())
-    _, corr, relr = _residual(op64, X, lam)
+        _normalize_columns(X.add_(D.double()))
+    _, corr, relr = units.residual(lam, 0, k)
     lam = lam + corr
     return lam, X, relr / np.maximum(np.abs(lam), 1e-30)
 
@@ -298,30 +379,28 @@ def refine_eigenpairs_dd_hosted(
     not hold it; on an 80 GB card the float64 block (M k 8 bytes, ~12 GB
     at M = 13.1M, k = 114) lives on the device next to its float32 copy,
     the deflation block of the CG phase.  Each chunk's residual feeds its
-    deflated CG on the device; the CG's matmat takes (M, col_chunk)
-    float32 blocks.
+    deflated CG on the device in one unit (one CUDA graph a width on a
+    card); the CG's matmat takes (M, col_chunk) float32 blocks.
     """
-    op64 = to_float64(op)
-    dt = op.dtype
     out = np.asarray(X64, np.float64)
-    X = torch.as_tensor(out, device=op.device).clone()
+    X = torch.empty(out.shape, dtype=torch.float64, device=op.device)
+    X.copy_(torch.from_numpy(out))
     lam = np.asarray(lam, np.float64).copy()
     k = X.shape[1]
     kr = k_report or k
     chunks = [(lo, min(lo + col_chunk, k)) for lo in range(0, k, col_chunk)]
+    units = _Units(op, to_float64(op), X, col_chunk, cg_steps, symmetric=True)
 
-    def residual_pass(collect_C):
+    def residual_pass():
         """One residual sweep over all columns: (corr, relr, C = X^T R)."""
-        C = torch.zeros((k, k), dtype=X.dtype, device=X.device) if collect_C else None
+        C = torch.empty((k, k), dtype=X.dtype, device=X.device)
         corr, relr = np.zeros(k), np.zeros(k)
         for lo, hi in chunks:
-            R, corr[lo:hi], relr[lo:hi] = _residual(op64, X[:, lo:hi], lam[lo:hi])
-            if collect_C:
-                C[:, lo:hi] = X.T @ R
+            C[:, lo:hi], corr[lo:hi], relr[lo:hi] = units.residual(lam, lo, hi)
         return corr, relr, C
 
     for rnd in range(max_rounds):
-        corr, relr, C = residual_pass(True)
+        corr, relr, C = residual_pass()
         lam_pre = lam.copy()
         lam = lam + corr
         rel = relr / np.maximum(np.abs(lam), 1e-30)
@@ -331,18 +410,15 @@ def refine_eigenpairs_dd_hosted(
         if (rel[:kr] < tol).all():
             break
         mu, Z = _rayleigh_ritz(to_numpy(C), to_numpy(X.T @ X), lam_pre, symmetric=True)
-        X = X @ torch.as_tensor(Z, dtype=X.dtype, device=X.device)
+        _rotate(X, Z)
         lam = np.asarray(mu, np.float64)
-        X32 = X.to(dt)
+        units.X32.copy_(X)
         for lo, hi in chunks:
-            R, c, _ = _residual(op64, X[:, lo:hi], lam[lo:hi])
+            D, c = units.correction(lam, lo, hi)
             lam[lo:hi] += c
-            D = _deflated_cg(op, X32, torch.as_tensor(lam[lo:hi], dtype=dt, device=X.device),
-                             R.to(dt), cg_steps)
             X[:, lo:hi] += D.double()
-        del X32
-        X = _normalize_columns(X)
-    corr, relr, _ = residual_pass(False)
+        _normalize_columns(X)
+    corr, relr, _ = residual_pass()
     lam = lam + corr
     out[...] = to_numpy(X)
     return lam, out, relr / np.maximum(np.abs(lam), 1e-30)

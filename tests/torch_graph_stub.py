@@ -27,11 +27,14 @@ class StubGraph:
         self.body, self.args, self.outputs = body, args, outputs
         self.replays = 0
 
-    def capture_begin(self):
+    def capture_begin(self, pool=None):
         self.capturing = True
 
     def capture_end(self):
         self.capturing = False
+
+    def pool(self):
+        return None
 
     def replay(self):
         assert not getattr(self, "capturing", False)
@@ -55,7 +58,7 @@ def install(setattr_=setattr):
     the counts.  Returns the list that gets every captured ``_Graph``."""
     captured = []
 
-    def capture(body, args, stream):
+    def capture(body, args, stream, pool=None):
         before = graphs._launch_counts()
         outputs = body(*args)
         g = graphs._Graph(StubGraph(body, args, outputs), graphs._pointers(args), outputs,
