@@ -1,0 +1,2 @@
+"""The benchmark of ``lanczos_tpu_torch`` on an NVIDIA H100: ``run.py`` runs
+one cell of ``BENCHMARK.json`` (see ``core.py``)."""

@@ -1,0 +1,10 @@
+"""The share of the profiled solves' wall in which no kernel, copy or memset
+ran on the card (the union of the trace's device intervals inside the
+solve spans)."""
+
+
+def read(rec):
+    tr = rec["trace"]
+    if tr is None or tr.window_s <= 0 or not tr.device:
+        return None
+    return 100.0 * (1.0 - tr.busy_s() / tr.window_s)
