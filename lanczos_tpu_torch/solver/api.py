@@ -10,7 +10,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .._util import to_numpy
+from .._util import COUNTERS, span, to_numpy
 from ..ops.operators import as_operator
 from .lanczos import lanczos
 from .results import EigResult, acceptance_inner_prod
@@ -68,69 +68,79 @@ def eigsh(
     (without full reorth, spurious copies of converged eigenvalues appear and
     are filtered by the Cullum–Willoughby test).  ``compensated=True`` runs
     the recurrence's reductions through the error-free-transform dot.
+
+    The call runs inside the span ``lt.eigsh`` and counts itself in
+    ``COUNTERS["lt.eigsh.calls"]`` (``_util.py``); the single-vector path's
+    phases have spans of their own, the block branch none.
     """
-    op = as_operator(A)
-    m = op.shape[0]
-    if n is None:
-        n = min(m, max(2 * k + 20, 4 * k))
-    if k > n:
-        raise ValueError(f"k={k} cannot exceed Krylov depth n={n}")
-    if ghost_filter is None:
-        ghost_filter = reorth != "full"
+    COUNTERS["lt.eigsh.calls"] += 1
+    with span("lt.eigsh"):
+        op = as_operator(A)
+        m = op.shape[0]
+        if n is None:
+            n = min(m, max(2 * k + 20, 4 * k))
+        if k > n:
+            raise ValueError(f"k={k} cannot exceed Krylov depth n={n}")
+        if ghost_filter is None:
+            ghost_filter = reorth != "full"
 
-    if block_size > 1:
-        return _eigsh_block(op, k, n, which, seed, v0, compute_acceptance, dtype,
-                            compensated, block_size)
+        if block_size > 1:
+            return _eigsh_block(op, k, n, which, seed, v0, compute_acceptance, dtype,
+                                compensated, block_size)
 
-    fac = lanczos(
-        op, n, seed=seed, v0=v0, reorth=reorth, reorth_passes=reorth_passes,
-        reorth_period=reorth_period, dtype=dtype, compensated=compensated,
-    )
-    theta, X, resid_est = ritz_from_factorization(fac)
-    theta_np = to_numpy(theta)
-
-    keep = np.ones(fac.n, dtype=bool)
-    if ghost_filter:
-        keep = cullum_willoughby_mask(
-            to_numpy(fac.alpha), to_numpy(fac.beta), theta_np
+        fac = lanczos(
+            op, n, seed=seed, v0=v0, reorth=reorth, reorth_passes=reorth_passes,
+            reorth_period=reorth_period, dtype=dtype, compensated=compensated,
         )
-        # Without (full) reorthogonalization, converged Ritz values reappear
-        # as numerically identical copies.  Single-vector Lanczos cannot
-        # resolve true multiplicity anyway, so collapse each cluster to its
-        # best-residual representative.
-        resid_np = to_numpy(resid_est)
-        scale = max(float(np.max(np.abs(theta_np))), 1.0)
-        tol = 1e-8 * scale
-        rep = None  # index of current cluster's representative
-        for i in np.argsort(theta_np):
-            if not keep[i]:
-                continue
-            if rep is not None and theta_np[i] - theta_np[rep] < tol:
-                if resid_np[i] < resid_np[rep]:
-                    keep[rep] = False
-                    rep = i
-                else:
-                    keep[i] = False
-            else:
-                rep = i
-    kept_idx = np.nonzero(keep)[0]
-    sel = torch.as_tensor(
-        kept_idx[_select(theta_np[kept_idx], which, k)], device=theta.device
-    )
+        theta, X, resid_est = ritz_from_factorization(fac)
+        with span("lt.select"):
+            theta_np = to_numpy(theta)
+            keep = (_ghost_mask(fac, theta_np, resid_est) if ghost_filter
+                    else np.ones(fac.n, dtype=bool))
+            kept_idx = np.nonzero(keep)[0]
+            sel = torch.as_tensor(
+                kept_idx[_select(theta_np[kept_idx], which, k)], device=theta.device
+            )
+            eigenvalues = theta[sel]
+            eigenvectors = X[:, sel]
+            residuals = resid_est[sel]
+        if compute_acceptance:
+            with span("lt.acceptance"):
+                inner = acceptance_inner_prod(op, eigenvectors)
+        else:
+            inner = torch.full_like(eigenvalues, float("nan"))
+        return EigResult(
+            eigenvalues=eigenvalues,
+            eigenvectors=eigenvectors,
+            residuals=residuals,
+            inner_prod=inner,
+        )
 
-    eigenvalues = theta[sel]
-    eigenvectors = X[:, sel]
-    residuals = resid_est[sel]
-    if compute_acceptance:
-        inner = acceptance_inner_prod(op, eigenvectors)
-    else:
-        inner = torch.full_like(eigenvalues, float("nan"))
-    return EigResult(
-        eigenvalues=eigenvalues,
-        eigenvectors=eigenvectors,
-        residuals=residuals,
-        inner_prod=inner,
-    )
+
+def _ghost_mask(fac, theta_np, resid_est):
+    """The Ritz values to keep: Cullum–Willoughby's genuine ones, each
+    cluster of numerically equal copies collapsed to its best residual."""
+    keep = cullum_willoughby_mask(to_numpy(fac.alpha), to_numpy(fac.beta), theta_np)
+    # Without (full) reorthogonalization, converged Ritz values reappear
+    # as numerically identical copies.  Single-vector Lanczos cannot
+    # resolve true multiplicity anyway, so collapse each cluster to its
+    # best-residual representative.
+    resid_np = to_numpy(resid_est)
+    scale = max(float(np.max(np.abs(theta_np))), 1.0)
+    tol = 1e-8 * scale
+    rep = None  # index of current cluster's representative
+    for i in np.argsort(theta_np):
+        if not keep[i]:
+            continue
+        if rep is not None and theta_np[i] - theta_np[rep] < tol:
+            if resid_np[i] < resid_np[rep]:
+                keep[rep] = False
+                rep = i
+            else:
+                keep[i] = False
+        else:
+            rep = i
+    return keep
 
 
 def _eigsh_block(op, k, n, which, seed, v0, compute_acceptance, dtype, compensated,

@@ -15,6 +15,10 @@ step to decide whether to run a reorthogonalization pass.
   copy of the basis per step).
 * Breakdown (beta ~ 0, an exact invariant subspace) is recorded in
   ``breakdown_iter`` and the recurrence continues with a zero vector.
+* ``_start`` runs inside the span ``lt.lanczos.start`` and each recurrence
+  loop inside ``lt.lanczos.recurrence`` (``_util.span``), which adds its
+  steps to ``COUNTERS["lt.lanczos.recurrence.steps"]``: one span per loop,
+  none per step.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .._util import COUNTERS, span
 from ..ops.operators import LinearOperator
 
 __all__ = [
@@ -140,35 +145,38 @@ def lanczos_segment(
     if breakdown_tol is None:
         breakdown_tol = float(10 * torch.finfo(r.dtype).eps)
 
-    for j in range(j0, j1):
-        beta = torch.sqrt(dot(r, r))
-        # Scale-aware breakdown test: beta relative to the basis scale (=1).
-        ok = beta > breakdown_tol
-        breakdown_iter = torch.where(ok, breakdown_iter, breakdown_iter.clamp(max=j))
-        v = r * torch.where(ok, 1.0 / torch.where(ok, beta, 1.0), 0.0)
+    COUNTERS["lt.lanczos.recurrence.steps"] += max(j1 - j0, 0)
+    with span("lt.lanczos.recurrence"):
+        for j in range(j0, j1):
+            beta = torch.sqrt(dot(r, r))
+            # Scale-aware breakdown test: beta relative to the basis scale (=1).
+            ok = beta > breakdown_tol
+            breakdown_iter = torch.where(ok, breakdown_iter, breakdown_iter.clamp(max=j))
+            v = r * torch.where(ok, 1.0 / torch.where(ok, beta, 1.0), 0.0)
 
-        if reorth == "full" or (reorth == "periodic" and j % reorth_period == 0):
-            v = _normalized(_orthogonalize(V[:j], v, basis_dot, reorth_passes), dot)
+            if reorth == "full" or (reorth == "periodic" and j % reorth_period == 0):
+                v = _normalized(_orthogonalize(V[:j], v, basis_dot, reorth_passes), dot)
 
-        V[j] = v
-        w = matvec(v)
-        alpha = dot(v, w)
-        r = w - alpha * v - beta * V[j - 1]
-        alpha_h[j] = alpha
-        beta_h[j - 1] = beta
+            V[j] = v
+            w = matvec(v)
+            alpha = dot(v, w)
+            r = w - alpha * v - beta * V[j - 1]
+            alpha_h[j] = alpha
+            beta_h[j - 1] = beta
     return V, r, alpha_h, beta_h, breakdown_iter
 
 
 def _start(matvec, v0, n, dot):
     """Normalize v0 and take the first step: (V with row 0 set, r, alpha_h)."""
-    v0 = v0 / torch.sqrt(dot(v0, v0))
-    V = torch.zeros((n, v0.shape[0]), dtype=v0.dtype, device=v0.device)
-    V[0] = v0
-    w = matvec(v0)
-    alpha0 = dot(v0, w)
-    alpha_h = torch.zeros(n, dtype=v0.dtype, device=v0.device)
-    alpha_h[0] = alpha0
-    return V, w - alpha0 * v0, alpha_h
+    with span("lt.lanczos.start"):
+        v0 = v0 / torch.sqrt(dot(v0, v0))
+        V = torch.zeros((n, v0.shape[0]), dtype=v0.dtype, device=v0.device)
+        V[0] = v0
+        w = matvec(v0)
+        alpha0 = dot(v0, w)
+        alpha_h = torch.zeros(n, dtype=v0.dtype, device=v0.device)
+        alpha_h[0] = alpha0
+        return V, w - alpha0 * v0, alpha_h
 
 
 def lanczos_kernel(
@@ -235,40 +243,42 @@ def _lanczos_selective_kernel(
     breakdown_iter = torch.tensor(n, dtype=torch.int64, device=device)
     idx = torch.arange(n, device=device)
 
-    for j in range(1, n):
-        beta = torch.sqrt(dot(r, r))
-        ok = beta > breakdown_tol
-        breakdown_iter = torch.where(ok, breakdown_iter, breakdown_iter.clamp(max=j))
-        v = r * torch.where(ok, 1.0 / torch.where(ok, beta, 1.0), 0.0)
+    COUNTERS["lt.lanczos.recurrence.steps"] += max(n - 1, 0)
+    with span("lt.lanczos.recurrence"):
+        for j in range(1, n):
+            beta = torch.sqrt(dot(r, r))
+            ok = beta > breakdown_tol
+            breakdown_iter = torch.where(ok, breakdown_iter, breakdown_iter.clamp(max=j))
+            v = r * torch.where(ok, 1.0 / torch.where(ok, beta, 1.0), 0.0)
 
-        # omega update for the new vector v_j (Simon's recurrence):
-        #   beta_j w_{j,i} = beta_{i} w_{j-1,i+1} + (alpha_i - alpha_{j-1})
-        #       w_{j-1,i} + beta_{i-1} w_{j-1,i-1} - beta_{j-1} w_{j-2,i}
-        raw = (
-            beta_h * torch.roll(omega_curr, -1)
-            + (alpha_h - alpha_h[j - 1]) * omega_curr
-            + torch.roll(beta_h, 1) * torch.roll(omega_curr, 1)
-            - beta_h[j - 1] * omega_prev
-        ) / torch.where(ok, beta, 1.0)
-        w_new = torch.where(idx < j, raw.abs() + noise, 0.0)
-        w_new[j] = 1.0
-        w_new[j - 1] = eps
+            # omega update for the new vector v_j (Simon's recurrence):
+            #   beta_j w_{j,i} = beta_{i} w_{j-1,i+1} + (alpha_i - alpha_{j-1})
+            #       w_{j-1,i} + beta_{i-1} w_{j-1,i-1} - beta_{j-1} w_{j-2,i}
+            raw = (
+                beta_h * torch.roll(omega_curr, -1)
+                + (alpha_h - alpha_h[j - 1]) * omega_curr
+                + torch.roll(beta_h, 1) * torch.roll(omega_curr, 1)
+                - beta_h[j - 1] * omega_prev
+            ) / torch.where(ok, beta, 1.0)
+            w_new = torch.where(idx < j, raw.abs() + noise, 0.0)
+            w_new[j] = 1.0
+            w_new[j - 1] = eps
 
-        drift = torch.where(idx < j - 1, w_new, 0.0).max()
-        if bool(drift > threshold):
-            v = _normalized(_orthogonalize(V[:j], v, basis_dot, reorth_passes), dot)
-            w_new = torch.where(idx < j, noise, w_new)
-            omega_prev = torch.where(idx < j, noise, omega_curr)
-        else:
-            omega_prev = omega_curr
-        omega_curr = w_new
+            drift = torch.where(idx < j - 1, w_new, 0.0).max()
+            if bool(drift > threshold):
+                v = _normalized(_orthogonalize(V[:j], v, basis_dot, reorth_passes), dot)
+                w_new = torch.where(idx < j, noise, w_new)
+                omega_prev = torch.where(idx < j, noise, omega_curr)
+            else:
+                omega_prev = omega_curr
+            omega_curr = w_new
 
-        V[j] = v
-        wv = matvec(v)
-        alpha = dot(v, wv)
-        r = wv - alpha * v - beta * V[j - 1]
-        alpha_h[j] = alpha
-        beta_h[j] = beta
+            V[j] = v
+            wv = matvec(v)
+            alpha = dot(v, wv)
+            r = wv - alpha * v - beta * V[j - 1]
+            alpha_h[j] = alpha
+            beta_h[j] = beta
 
     return LanczosFactorization(
         alpha=alpha_h, beta=beta_h[1:], V=V, resid=r, breakdown_iter=breakdown_iter

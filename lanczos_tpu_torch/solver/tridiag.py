@@ -12,6 +12,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .._util import span
+
 __all__ = [
     "tridiag_to_dense",
     "tridiag_eigh",
@@ -49,10 +51,13 @@ def ritz_from_factorization(fac) -> Tuple[torch.Tensor, torch.Tensor, torch.Tens
                        (the classical Lanczos bound, no extra matvec;
                        beta_n = ||resid|| of the factorization).
     """
-    theta, W = tridiag_eigh(fac.alpha, fac.beta)
-    X = fac.V.T @ W
-    beta_n = torch.sqrt(torch.dot(fac.resid, fac.resid))
-    return theta, X, beta_n * W[-1, :].abs()
+    with span("lt.ritz"):
+        with span("lt.ritz.eigh"):
+            theta, W = tridiag_eigh(fac.alpha, fac.beta)
+        with span("lt.ritz.rotate"):
+            X = fac.V.T @ W
+            beta_n = torch.sqrt(torch.dot(fac.resid, fac.resid))
+            return theta, X, beta_n * W[-1, :].abs()
 
 
 def cullum_willoughby_mask(
