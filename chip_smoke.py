@@ -7,8 +7,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. The card: ``nvidia-smi`` name and power limit, torch/CUDA versions, TF32 flags.
 2. Build: every kernel library from ``lanczos_tpu_torch/csrc`` for sm_90a
-   (``stencil.cu``, ``interface.cu``; one nvcc each, started together), with
-   nvcc's ``-Xptxas -v`` report.
+   (``stencil.cu``, ``interface.cu``, ``cgs2.cu``; one nvcc each, started
+   together), with nvcc's ``-Xptxas -v`` report.
 3. Each stencil kernel against its plain PyTorch version, on the same CUDA
    tensors, in fp32 and fp64, at the test shapes, the level grids of the
    N=60 and N=120 lattices (20^3, 30^3, 40^3, 60^3), two odd grids and the
@@ -19,7 +19,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
 4. ``eigsh`` at N=64 (k=8, n=150, fp32) against golden eigenvalues that the
    JAX package computed in fp64 (``lanczos_tpu_torch/data/golden_eigsh_n64.json``).
 5. The flagship: N=160^3, L=25 fm, 27-point, ``eigsh(k=20, n=400, "SA")``
-   in fp32, with the kernels' launch counts, then the same solve in fp64.
+   in fp32, with the kernels' launch counts (every one of its 399 CGS2
+   calls runs the CGS2 kernel), then the same solve in fp64.  Then the
+   CGS2 kernel against its plain version (two cuBLAS GEMVs a pass) at the
+   flagship's M: j = 200 and 399 in fp32 and fp64, j = 1000 (row blocks)
+   in fp32, two passes, within 8 eps sqrt(j), with graph-replay times
+   beside the bound of the bytes each must read.
 
 The irregular multi-resolution lattice (the reference's ``Irr3Ddeuteron.py``):
 
@@ -357,7 +362,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     infos = build_all()
-    print(f"== build (both libraries in parallel: {time.perf_counter() - t0:.2f} s wall)")
+    print(f"== build (the kernel libraries in parallel: {time.perf_counter() - t0:.2f} s wall)")
     for info in infos.values():
         print(f"library {os.path.relpath(info.path, HERE)} "
               f"({'already built' if info.cached else 'built'}; "
@@ -547,6 +552,60 @@ def phase_timing(lt, floor_ms):
     return rows, copy_gbs
 
 
+def phase_cgs2():
+    """The CGS2 kernel against its plain version (two cuBLAS GEMVs a pass)
+    at the flagship's M = 4,096,000 and passes = 2: j = 200 and 399 in fp32
+    and fp64 (one tile: p + 1 = 3 reads of V[:j]) and j = 1000 in fp32 (row
+    blocks: 2p = 4 reads), each held to 8 eps sqrt(j) of the input's scale
+    (tests/test_torch_cuda.py's bound), bitwise repeatable, and timed as
+    graph replays; returns the fields of the kernels JSON line."""
+    from lanczos_tpu_torch._util import COUNTERS
+    from lanczos_tpu_torch.ops import cgs2_kernels as ck
+    from lanczos_tpu_torch.utils.timing import graph_ms
+
+    m, passes = 4_096_000, 2
+    print(f"== cgs2 vs plain version at M = {m}, passes = {passes} (graph: replays of 5 calls, "
+          f"median of 10; bound: the reads of V[:j] at 3.35 TB/s)")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    cases = {}
+    for dtype, rows in ((torch.float32, (200, 399, 1000)), (torch.float64, (200, 399))):
+        eps = torch.finfo(dtype).eps
+        Vfull = torch.randn(max(rows), m, generator=gen, dtype=dtype, device="cuda") / m**0.5
+        for j in rows:
+            V = Vfull[:j]
+            c = torch.rand(j, generator=gen, dtype=dtype, device="cuda") * 2 - 1
+            v = torch.randn(m, generator=gen, dtype=dtype, device="cuda") / m**0.5 + c @ V
+            before = COUNTERS["lt.cgs2.fused"]
+            got = ck.cgs2(V, v, passes)
+            want = ck.cgs2_reference(V, v, passes)
+            torch.cuda.synchronize()
+            check(COUNTERS["lt.cgs2.fused"] - before == 1, "cgs2 did not launch its kernel")
+            check(torch.equal(got, ck.cgs2(V, v, passes)), f"cgs2 j={j}: not bitwise repeatable")
+            err, scale = float((got - want).abs().max()), float(v.abs().max())
+            tol = 8 * eps * j**0.5 * scale
+            ms, samples = graph_ms(lambda: ck.cgs2(V, v, passes), launches=5, samples=10)
+            plain_ms, _ = graph_ms(lambda: ck.cgs2_reference(V, v, passes), launches=5,
+                                   samples=10)
+            reads = passes + 1 if j <= ck.max_rows() else 2 * passes
+            bound_ms = 1e3 * reads * j * m * V.element_size() / PEAK_HBM_BYTES
+            plain_bound = 1e3 * 2 * passes * j * m * V.element_size() / PEAK_HBM_BYTES
+            label = f"{str(dtype)[6:]} j={j}"
+            print(f"  {label:13s} max abs err {err:.3e} (tol {tol:.3e}); graph {ms:.4f} ms, "
+                  f"{bound_ms / ms:.1%} of its {reads} reads' bound {bound_ms:.4f} ms; plain "
+                  f"{plain_ms:.4f} ms, {plain_bound / plain_ms:.1%} of its {2 * passes} reads' "
+                  f"bound {plain_bound:.4f} ms")
+            print(f"    samples graph {fmt(samples)}")
+            check(err <= tol, f"cgs2 {label}: the kernel disagrees with its plain version")
+            cases[label] = dict(max_abs_err=err, tol=tol, reads=reads, ms=ms, plain_ms=plain_ms,
+                                bound_ms=bound_ms, plain_bound_ms=plain_bound)
+            del V, c, v, got, want
+        del Vfull
+        torch.cuda.empty_cache()
+    at = cases["float32 j=399"]
+    return dict(max_abs_err=max(c["max_abs_err"] for c in cases.values()), ms=at["ms"],
+                plain_ms=at["plain_ms"], bound_ms=at["bound_ms"], bound_by="bytes", cases=cases)
+
+
 def compare_eigs(label, vals, ref_vals, accepted, tol):
     """Print |vals - ref_vals| and fail where an accepted pair exceeds tol."""
     print(f"  {label}: tolerance {tol:.3e} MeV on the pairs the reference accepts")
@@ -580,6 +639,7 @@ def phase_golden(lt):
 
 
 def phase_flagship(lt):
+    from lanczos_tpu_torch._util import COUNTERS
     from lanczos_tpu_torch.ops import stencil_kernels as sk
 
     print("== flagship: N=160^3, L=25, 27-point, eigsh(k=20, n=400, 'SA')")
@@ -594,14 +654,18 @@ def phase_flagship(lt):
         torch.cuda.reset_peak_memory_stats()
         sk.stencil_spmv.launches = 0
         sk.stencil_spmm.launches = 0
+        cgs2_before = (COUNTERS["lt.cgs2.calls"], COUNTERS["lt.cgs2.fused"])
         t0 = time.perf_counter()
         res = lt.eigsh(H, k=k, n=n, which="SA", v0=v0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = (sk.stencil_spmv.launches, sk.stencil_spmm.launches)
+        cgs2_calls = COUNTERS["lt.cgs2.calls"] - cgs2_before[0]
+        launches = (sk.stencil_spmv.launches, sk.stencil_spmm.launches,
+                    COUNTERS["lt.cgs2.fused"] - cgs2_before[1])
         peak = torch.cuda.max_memory_allocated()
         print(f"  {str(dtype)[6:]}: wall {wall:.3f} s, peak device memory "
-              f"{peak / 2**30:.2f} GiB, launches spmv {launches[0]} spmm {launches[1]}")
+              f"{peak / 2**30:.2f} GiB, launches spmv {launches[0]} spmm {launches[1]} "
+              f"cgs2 {launches[2]} (of {cgs2_calls} CGS2 calls)")
         print(res.summary(print_nr=k))
         vals = res.eigenvalues.double().cpu().numpy()
         check(tuple(res.eigenvalues.shape) == (k,)
@@ -611,6 +675,8 @@ def phase_flagship(lt):
             check(bool(torch.isfinite(t).all()), f"flagship {dtype}: non-finite {name}")
         check(launches[0] >= n, f"spmv launched {launches[0]} times, expected >= {n}")
         check(launches[1] >= 1, f"spmm launched {launches[1]} times, expected >= 1")
+        check(launches[2] == cgs2_calls == n - 1,
+              f"cgs2 launched {launches[2]} times for {cgs2_calls} CGS2 calls, expected {n - 1}")
         runs[dtype] = dict(vals=vals, res=res, wall=wall, peak=peak, launches=launches,
                            tol=fp32_tolerance(H))
         del H, res
@@ -2928,6 +2994,7 @@ def main():
     times, copy_gbs = phase_timing(lt, floor_ms)
     phase_golden(lt)
     flagship = phase_flagship(lt)
+    cgs2 = phase_cgs2()
     print(f"== regular path done at {time.perf_counter() - t_start:.1f} s")
 
     print("== irregular lattices")
@@ -3017,6 +3084,11 @@ def main():
             k["sharded_slab_times"] = {
                 **{f"N160_D{d}": row for d, row in results[21]["slab_rows"].items()},
                 **{f"n216_D4_{g}": row for g, row in results[22]["slab_rows"].items()}}
+    kernels.append(dict(
+        name="cgs2", route="cuda", source="lanczos_tpu_torch/csrc/cgs2.cu",
+        replaces="no TPU kernel: the JAX package's CGS2 (lanczos_tpu/solver/lanczos.py:"
+                 "_orthogonalize) is plain matmuls",
+        launches=flagship["launches"][2], **cgs2))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

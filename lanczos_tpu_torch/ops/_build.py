@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Each source of ``csrc/`` (``stencil.cu``, ``interface.cu``) is compiled with
-``nvcc`` for ``sm_90a`` into its own shared library with a plain C
-interface and loaded with :mod:`ctypes` (no PyTorch headers, so a build
+Each source of ``csrc/`` (``stencil.cu``, ``interface.cu``, ``cgs2.cu``)
+is compiled with ``nvcc`` for ``sm_90a`` into its own shared library with a
+plain C interface and loaded with :mod:`ctypes` (no PyTorch headers, so a build
 takes seconds).  The build happens at first use, from the sources in this
 package only, into ``lanczos_tpu_torch/_build/``; a library's name carries a
 hash of its source and the flags, so an edited source is rebuilt and a
@@ -32,7 +32,7 @@ import torch
 
 __all__ = [
     "BuildInfo", "nvcc_path", "load_stencil_library", "load_interface_library",
-    "build_all", "launch_on",
+    "load_cgs2_library", "build_all", "launch_on",
 ]
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
@@ -142,12 +142,29 @@ def load_interface_library():
     return lib, info
 
 
+@functools.lru_cache(maxsize=None)
+def load_cgs2_library():
+    """(ctypes library, BuildInfo) for ``csrc/cgs2.cu``."""
+    info = _build(_CSRC / "cgs2.cu", "cgs2")
+    lib = ctypes.CDLL(str(info.path))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for dt in ("f32", "f64"):
+        fn = getattr(lib, f"cgs2_{dt}")
+        # V, v, out, h, partial, M, j, passes, blocks, stream
+        fn.argtypes = [ptr] * 5 + [ctypes.c_longlong, i32, i32, i32, ptr]
+        fn.restype = i32
+    lib.cgs2_max_rows.argtypes = []
+    lib.cgs2_max_rows.restype = i32
+    return lib, info
+
+
 def build_all():
     """Build every kernel library at once, one nvcc per source started
     together; returns {name: BuildInfo}."""
     from concurrent.futures import ThreadPoolExecutor
 
-    loaders = {"stencil": load_stencil_library, "interface": load_interface_library}
+    loaders = {"stencil": load_stencil_library, "interface": load_interface_library,
+               "cgs2": load_cgs2_library}
     with ThreadPoolExecutor(len(loaders)) as pool:
         futures = {name: pool.submit(fn) for name, fn in loaders.items()}
         return {name: f.result()[1] for name, f in futures.items()}

@@ -7,9 +7,11 @@ a tensor ``where``), except on the selective path, which reads one flag per
 step to decide whether to run a reorthogonalization pass.
 
 * Full reorthogonalization is classical Gram-Schmidt run twice (CGS2): two
-  matrix-vector products against the stored basis per pass.  The basis is
-  sliced to its filled rows ``V[:j]``; the JAX package multiplies by the
-  zero-padded ``(n, M)`` basis, whose zero rows contribute exactly 0.
+  matrix-vector products against the stored basis per pass, or on the card
+  one fused kernel that reads the basis three times (``_orthogonalize``).
+  The basis is sliced to its filled rows ``V[:j]``; the JAX package
+  multiplies by the zero-padded ``(n, M)`` basis, whose zero rows
+  contribute exactly 0.
 * ``V`` is row-major ``(n, M)`` and is filled in place, as are the
   ``alpha``/``beta`` histories (PyTorch tensors are mutable; this saves a
   copy of the basis per step).
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from .._util import COUNTERS, span
+from ..ops import cgs2_kernels
 from ..ops.operators import LinearOperator
 
 __all__ = [
@@ -102,10 +105,21 @@ def _resolve_dot(dot, compensated: bool):
 
 
 def _orthogonalize(V, v, basis_dot, passes: int):
-    """Orthogonalize v against the rows of V, CGS x passes."""
-    for _ in range(passes):
-        v = v - basis_dot(V, v) @ V
-    return v
+    """Orthogonalize v against the rows of V, CGS x passes.
+
+    An unsharded basis (the default ``basis_dot``) runs
+    ``ops/cgs2_kernels.py:cgs2``: on the card its CUDA kernel, passes + 1
+    sweeps over V instead of 2 x passes (2 x passes past one tile's rows),
+    on the CPU the plain loop.  A row-sharded mesh's ``basis_dot``, which
+    all-reduces each projection over the ranks, runs the plain loop with
+    it.  Counts each call in ``COUNTERS["lt.cgs2.calls"]`` (the kernel's
+    launches are ``COUNTERS["lt.cgs2.fused"]``); inside a CUDA graph both
+    count the capture, not the replays.
+    """
+    COUNTERS["lt.cgs2.calls"] += 1
+    if basis_dot is _default_basis_dot:
+        return cgs2_kernels.cgs2(V, v, passes)
+    return cgs2_kernels.cgs2_reference(V, v, passes, basis_dot)
 
 
 def _normalized(v, dot):

@@ -18,6 +18,10 @@ work per call outlasts the kernels):
   residual block's width) on the two level grids;
 * ``apply_fused_interface`` of A at N=120 (138 classes, 11,598 rows);
 * ``CompositeV2.matvec`` at N=120;
+* CGS2, two passes against V[:j] at the regular cell's M = 4,096,000, in
+  fp32 and fp64 with j = 200 and 399: ``ops/cgs2_kernels.py:cgs2`` where
+  the package has it, and the plain loop (two cuBLAS GEMVs a pass) in
+  either tree (these cases alone also in fp64);
 * the launch floor: a one-element ``fill_`` replayed the same way.
 
 Prints one line per case and, last, one JSON object of them all.
@@ -103,6 +107,31 @@ def main():
     y = torch.zeros(op.shape[0], device="cuda")
     case("apply_fused_interface N=120 A", lambda: ik.apply_fused_interface(op.fused, next(xo), y))
     case("CompositeV2.matvec N=120", lambda: op.matvec(next(xo)))
+    del op, xo, y
+    torch.cuda.empty_cache()
+
+    try:
+        from lanczos_tpu_torch.ops import cgs2_kernels as ck
+    except ImportError:  # a tree from before the kernel
+        ck = None
+
+    def loop(V, v):
+        for _ in range(2):
+            v = v - (V @ v) @ V
+        return v
+
+    m = 4_096_000
+    for dtype in (torch.float32, torch.float64):
+        V = torch.randn(399, m, generator=gen, device="cuda", dtype=dtype) / m**0.5
+        v = torch.randn(m, generator=gen, device="cuda", dtype=dtype) / m**0.5
+        for j in (200, 399):
+            tag = f"{str(dtype)[6:]} j={j}"
+            if ck is not None:
+                case(f"cgs2 {tag}", lambda j=j: ck.cgs2(V[:j], v, 2), launches=5,
+                     eager_launches=10)
+            case(f"cgs2 loop {tag}", lambda j=j: loop(V[:j], v), launches=5, eager_launches=10)
+        del V, v
+        torch.cuda.empty_cache()
     print(json.dumps(out))
 
 

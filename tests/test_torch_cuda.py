@@ -1,5 +1,5 @@
-"""Card-only tests of the port: the CUDA stencil and interface kernels, a
-CompositeV2 on the card, and a small solve.
+"""Card-only tests of the port: the CUDA stencil, interface and CGS2
+kernels, a CompositeV2 on the card, and small solves.
 
 They need an NVIDIA GPU and skip here otherwise (decided inside each test,
 so every pytest-xdist worker collects the same tests).  On a card:
@@ -10,6 +10,9 @@ The file imports no jax, so with ``--noconftest`` it also runs where jax is
 not installed.
 """
 
+import os
+from functools import lru_cache
+
 import numpy as np
 import pytest
 import torch
@@ -17,7 +20,9 @@ import torch
 torch.set_num_threads(1)
 
 import lanczos_tpu_torch as pt  # noqa: E402
+from lanczos_tpu_torch._util import COUNTERS  # noqa: E402
 from lanczos_tpu_torch.ops import make_stencil_operator  # noqa: E402
+from lanczos_tpu_torch.ops import cgs2_kernels as ck  # noqa: E402
 from lanczos_tpu_torch.ops import interface_kernel as ik  # noqa: E402
 from lanczos_tpu_torch.ops import stencil_kernels as sk  # noqa: E402
 
@@ -114,9 +119,10 @@ def test_cuda_eigsh_matches_cpu_fp64():
         12, 25.0, pt.deuteron_potential_3d, stencil="27", dtype=torch.float64,
         device="cpu",
     )
-    launches = sk.stencil_spmv.launches
+    launches, cgs2_launches = sk.stencil_spmv.launches, COUNTERS["lt.cgs2.fused"]
     r32 = pt.eigsh(H32, k=4, n=80, v0=v0)
     assert sk.stencil_spmv.launches == launches + 80
+    assert COUNTERS["lt.cgs2.fused"] == cgs2_launches + 79  # every step's CGS2 ran the kernel
     r64 = pt.eigsh(H64, k=4, n=80, v0=v0)
     # fp32 storage of H moves eigenvalues by <= eps32/2 * ||H||_G (Weyl); the
     # fp32 SpMVs round by about as much again.
@@ -253,6 +259,7 @@ def test_cuda_captured_cycles_equal_the_eager_ones(dtype):
         lambda: pt.eigs_nonsym(C, k=4, max_basis=30, tol=1e-6, v0=v0),
         lambda: pt.eigsh_restarted(H, k=4, max_basis=20, tol=1e-6, compensated=True, seed=3),
     )
+    fused = COUNTERS["lt.cgs2.fused"]
     for solve in solves:
         before = sk.stencil_spmv.launches
         graphs.reset_stats()
@@ -270,6 +277,7 @@ def test_cuda_captured_cycles_equal_the_eager_ones(dtype):
             assert sk.stencil_spmv.launches - before == launched
         for name in ("eigenvalues", "eigenvectors", "residuals"):
             assert torch.equal(getattr(captured, name), getattr(plain, name)), name
+    assert COUNTERS["lt.cgs2.fused"] > fused  # the restart cycles ran the CGS2 kernel
 
 
 @pytest.mark.cuda
@@ -303,3 +311,217 @@ def test_cuda_captured_block_cycles_equal_the_eager_ones(dtype):
             plain = solve()
         for name in ("eigenvalues", "eigenvectors", "residuals", "inner_prod"):
             assert torch.equal(getattr(captured, name), getattr(plain, name)), name
+
+
+@pytest.fixture(scope="module")
+def cgs2_bases():
+    """{M: (V64, V32)}: 399 orthonormal rows of length M (an fp64 QR on the
+    card, and its fp32 copy) at the irregular N=120 lattice's M = 280,000
+    and the regular N=160^3 cell's M = 4,096,000."""
+    _require_card()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bases = {}
+    for m in (280_000, 4_096_000):
+        q = torch.linalg.qr(
+            torch.randn(m, 399, generator=gen, dtype=torch.float64, device="cuda")).Q
+        V64 = q.T.contiguous()
+        del q
+        bases[m] = (V64, V64.float())
+    return bases
+
+
+def _cgs2_input(V64, j, dtype, seed):
+    """A vector of unit scale with components of size ~1 in the span of
+    the first j rows, in ``dtype``."""
+    m = V64.shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    c = torch.rand(j, generator=gen, dtype=torch.float64, device="cuda") * 2 - 1
+    x = torch.randn(m, generator=gen, dtype=torch.float64, device="cuda") / m**0.5
+    return (x + c @ V64[:j]).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [280_000, 4_096_000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_cgs2_matches_the_loop(cgs2_bases, dtype, m):
+    """The kernel against the plain loop (cuBLAS GEMVs): a few ulps times
+    sqrt(j) of the input's scale apart (the same arithmetic, its sums in
+    another order), orthogonality as good within 2x, and bitwise the same
+    from call to call."""
+    V64, V32 = cgs2_bases[m]
+    Vfull = V64 if dtype == torch.float64 else V32
+    eps = torch.finfo(dtype).eps
+    for j in (1, 37, 399):
+        V = Vfull[:j]
+        v = _cgs2_input(V64, j, dtype, seed=j)
+        for passes in (1, 2):
+            want = ck.cgs2_reference(V, v, passes)
+            got = ck.cgs2(V, v, passes)
+            again = ck.cgs2(V, v, passes)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), (j, passes)  # no atomics
+            err, scale = float((got - want).abs().max()), float(v.abs().max())
+            assert err <= 8 * eps * j**0.5 * scale, (j, passes, err, scale)
+            if passes == 2 and j > 1:
+                # ||V v2||_inf, in fp64 over the stored rows: a max over
+                # j >= 37 rows of rounding noise (one row's is one sample).
+                Vd = V.double()
+                ours = float((Vd @ got.double()).abs().max())
+                loop = float((Vd @ want.double()).abs().max())
+                del Vd
+                assert ours <= 2 * loop, (j, ours, loop)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_cgs2_odd_shapes_match_the_loop(dtype):
+    """Rows of odd length and a vector one element into its buffer (element
+    copies in place of 16-byte ones), and j up to the tile's capacity (two
+    step-B pairs a thread), against the plain loop as above."""
+    _require_card()
+    eps = torch.finfo(dtype).eps
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for m, j, offset in ((100_003, 37, 0), (100_003, 399, 0), (65_536, 600, 1),
+                         (65_536, ck.max_rows(), 0)):
+        q = torch.linalg.qr(torch.randn(m, j, generator=gen, dtype=torch.float64, device="cuda")).Q
+        V = q.T.contiguous().to(dtype)
+        del q
+        v = (torch.randn(m + offset, generator=gen, dtype=dtype, device="cuda") / m**0.5)[offset:]
+        for passes in (1, 2):
+            want = ck.cgs2_reference(V, v, passes)
+            got = ck.cgs2(V, v, passes)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ck.cgs2(V, v, passes)), (m, j, passes)
+            err, scale = float((got - want).abs().max()), float(v.abs().max())
+            assert err <= 8 * eps * j**0.5 * scale, (m, j, passes, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_cgs2_captured_equals_eager(cgs2_bases, dtype):
+    """_orthogonalize captured in a CUDA graph replays the kernel bitwise as
+    its eager call; the counters count the capture, not the replays."""
+    from lanczos_tpu_torch.solver.lanczos import _default_basis_dot, _orthogonalize
+
+    V64, V32 = cgs2_bases[280_000]
+    V = (V64 if dtype == torch.float64 else V32)[:200]
+    v = _cgs2_input(V64, 200, dtype, seed=7)
+    fused = COUNTERS["lt.cgs2.fused"]
+    eager = _orthogonalize(V, v, _default_basis_dot, 2)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _orthogonalize(V, v, _default_basis_dot, 2)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = _orthogonalize(V, v, _default_basis_dot, 2)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert COUNTERS["lt.cgs2.fused"] - fused == 3
+    assert torch.equal(captured, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_cgs2_beyond_one_tile_runs_row_blocks(dtype):
+    """More rows than one tile holds run the kernel in row blocks (two
+    sweeps a pass), through _orthogonalize as any other j, and so do views
+    that are not contiguous (a column slice, a transposed store, a strided
+    v: copied first); each against the plain loop as above."""
+    from lanczos_tpu_torch.solver.lanczos import _default_basis_dot, _orthogonalize
+
+    _require_card()
+    eps = torch.finfo(dtype).eps
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    m = 65_536
+    cases = []
+    for j in (ck.max_rows() + 1, 2 * ck.max_rows() + 5):
+        V = torch.randn(j, m, generator=gen, dtype=dtype, device="cuda") / m**0.5
+        cases.append((f"j={j}", V, torch.randn(m, generator=gen, dtype=dtype, device="cuda")))
+    wide = torch.randn(300, m + 40, generator=gen, dtype=dtype, device="cuda") / m**0.5
+    cases.append(("column slice", wide[:, 8:m + 8], torch.randn(m, generator=gen, dtype=dtype,
+                                                                 device="cuda")))
+    cases.append(("transposed", wide[:, :m].T.contiguous().T,
+                  torch.randn(2 * m, generator=gen, dtype=dtype, device="cuda")[::2]))
+    for label, V, v in cases:
+        j = V.shape[0]
+        calls, fused = COUNTERS["lt.cgs2.calls"], COUNTERS["lt.cgs2.fused"]
+        for passes in (1, 2):
+            want = ck.cgs2_reference(V, v, passes)
+            got = _orthogonalize(V, v, _default_basis_dot, passes)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ck.cgs2(V, v, passes)), (label, passes)
+            err, scale = float((got - want).abs().max()), float(v.abs().max())
+            assert err <= 8 * eps * j**0.5 * scale, (label, passes, err, scale)
+        assert COUNTERS["lt.cgs2.calls"] - calls == 2
+        assert COUNTERS["lt.cgs2.fused"] - fused == 4  # two through _orthogonalize, two direct
+    with pytest.raises(TypeError):  # no kernel for other dtypes
+        ck.cgs2(V.half(), v.half(), 2)
+
+
+@lru_cache(maxsize=None)
+def _restarted_cpu_fp64():
+    """eigsh_restarted (compensated) and eigs_nonsym of the N=65 deuteron
+    in float64 on the CPU, and the operator's Gershgorin bound."""
+    H = pt.build_regular_hamiltonian(65, 25.0, pt.deuteron_potential_3d, stencil="27",
+                                     dtype=torch.float64, device="cpu")
+    norm = float(H.weights.abs().sum()) + float(H.diag.abs().max())
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    try:
+        return (pt.eigsh_restarted(H, **RESTARTED), pt.eigs_nonsym(H, **NONSYM)), norm
+    finally:
+        torch.set_num_threads(threads)
+
+
+# k=3: the fourth pair (2.6174 MeV) sits 0.01 MeV above the third, and the
+# fp32 restart resolves it on some start vectors only, the loop as the
+# kernel (H100, seeds 3, 4, 5).
+RESTARTED = dict(k=3, max_basis=20, tol=1e-6, compensated=True, seed=3)
+NONSYM = dict(k=3, max_basis=30, tol=1e-6, seed=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_restarted_solves_match_cpu_fp64(dtype):
+    """eigsh_restarted(compensated=True) on the card, whose thick-restart
+    cycles (eager and captured) run every CGS2 through the kernel, against
+    the same solve in float64 on the CPU at M = 274,625 (the N=65 deuteron,
+    the size of the N=120 irregular lattice's 280,000 slots).  eigs_nonsym
+    beside it is the control: its Arnoldi takes its own Gram-Schmidt and
+    runs no CGS2 kernel.  Each reference pair has a card eigenvalue within
+    eps ||H||_G (test_cuda_eigsh_matches_cpu_fp64's bound: storage and
+    SpMV rounding) plus both pairs' residual norms (Weyl: a Ritz value is
+    within its residual's norm of an eigenvalue), and the card's residuals
+    are no larger than 10x the reference's, the solve's tol or the dtype's
+    floor, 10 eps ||H||_G (the fp32 restart stalls at 4-5 eps ||H||_G, the
+    loop as the kernel)."""
+    _require_card()
+    (ref_restarted, ref_nonsym), norm = _restarted_cpu_fp64()
+    H = pt.build_regular_hamiltonian(65, 25.0, pt.deuteron_potential_3d, stencil="27",
+                                     dtype=dtype, device="cuda")
+    eps = float(torch.finfo(dtype).eps)
+    for solve, kw, ref, kernel in ((pt.eigsh_restarted, RESTARTED, ref_restarted, True),
+                                   (pt.eigs_nonsym, NONSYM, ref_nonsym, False)):
+        calls, fused = COUNTERS["lt.cgs2.calls"], COUNTERS["lt.cgs2.fused"]
+        res = solve(H, **kw)
+        torch.cuda.synchronize()
+        ran = COUNTERS["lt.cgs2.fused"] - fused
+        assert ran == COUNTERS["lt.cgs2.calls"] - calls and (ran > 0) == kernel, (solve, ran)
+        vals = res.eigenvalues.double().cpu().numpy()
+        resid = res.residuals.double().cpu().numpy() * np.maximum(np.abs(vals), 1.0)
+        ref_vals = ref.eigenvalues.numpy()
+        ref_resid = ref.residuals.numpy() * np.maximum(np.abs(ref_vals), 1.0)
+        for lam, r in zip(ref_vals, ref_resid):
+            i = int(np.argmin(np.abs(vals - lam)))
+            tol = eps * norm + r + resid[i]
+            assert abs(vals[i] - lam) <= tol, (solve, dtype, lam, vals, tol)
+        # Residual norms: within 10x the nearest reference pair's, or below
+        # the dtype's floor or the requested tolerance.
+        for i, r in enumerate(resid):
+            j = int(np.argmin(np.abs(ref_vals - vals[i])))
+            limit = max(10 * ref_resid[j], 10 * eps * norm, kw["tol"] * max(abs(vals[i]), 1.0))
+            assert r <= limit, (solve, dtype, vals, resid, ref_resid)
