@@ -558,7 +558,9 @@ def phase_cgs2():
     and fp64 (one tile: p + 1 = 3 reads of V[:j]) and j = 1000 in fp32 (row
     blocks: 2p = 4 reads), each held to 8 eps sqrt(j) of the input's scale
     (tests/test_torch_cuda.py's bound), bitwise repeatable, and timed as
-    graph replays; returns the fields of the kernels JSON line."""
+    graph replays; then one step of the lagged recurrence (cgs2_lagged,
+    finishing row j - 1: p = 2 reads) at j = 200 and 399 against its plain
+    version the same way; returns the fields of the kernels JSON line."""
     from lanczos_tpu_torch._util import COUNTERS
     from lanczos_tpu_torch.ops import cgs2_kernels as ck
     from lanczos_tpu_torch.utils.timing import graph_ms
@@ -570,7 +572,7 @@ def phase_cgs2():
     cases = {}
     for dtype, rows in ((torch.float32, (200, 399, 1000)), (torch.float64, (200, 399))):
         eps = torch.finfo(dtype).eps
-        Vfull = torch.randn(max(rows), m, generator=gen, dtype=dtype, device="cuda") / m**0.5
+        Vfull = torch.randn(max(rows) + 1, m, generator=gen, dtype=dtype, device="cuda") / m**0.5
         for j in rows:
             V = Vfull[:j]
             c = torch.rand(j, generator=gen, dtype=dtype, device="cuda") * 2 - 1
@@ -586,7 +588,7 @@ def phase_cgs2():
             ms, samples = graph_ms(lambda: ck.cgs2(V, v, passes), launches=5, samples=10)
             plain_ms, _ = graph_ms(lambda: ck.cgs2_reference(V, v, passes), launches=5,
                                    samples=10)
-            reads = passes + 1 if j <= ck.max_rows() else 2 * passes
+            reads = passes + 1 if j <= ck.MAX_ROWS else 2 * passes
             bound_ms = 1e3 * reads * j * m * V.element_size() / PEAK_HBM_BYTES
             plain_bound = 1e3 * 2 * passes * j * m * V.element_size() / PEAK_HBM_BYTES
             label = f"{str(dtype)[6:]} j={j}"
@@ -599,10 +601,46 @@ def phase_cgs2():
             cases[label] = dict(max_abs_err=err, tol=tol, reads=reads, ms=ms, plain_ms=plain_ms,
                                 bound_ms=bound_ms, plain_bound_ms=plain_bound)
             del V, c, v, got, want
+            if j > ck.MAX_ROWS:
+                continue
+            # One lagged step: row j - 1 unfinished by ~1e-3 of its coefficients.
+            hp = (torch.rand(j - 1, generator=gen, dtype=dtype, device="cuda") - 0.5) * 2e-3
+            Vs = Vfull[: j + 1].clone()
+            Vs[j - 1] += hp @ Vs[: j - 1]
+            c = torch.rand(j, generator=gen, dtype=dtype, device="cuda") * 2 - 1
+            v = torch.randn(m, generator=gen, dtype=dtype, device="cuda") / m**0.5 + c @ Vs[:j]
+            Vr = Vs.clone()
+            h_ref = ck.cgs2_lagged_reference(Vr, j, v, hp, passes)
+            want = Vr[j - 1:j + 1].clone()
+            del Vr
+            Vk = Vs.clone()
+            before = COUNTERS["lt.cgs2.fused"]
+            h = ck.cgs2_lagged(Vk, j, v, hp, passes)
+            again = ck.cgs2_lagged(Vs, j, v, hp, passes)
+            torch.cuda.synchronize()
+            check(COUNTERS["lt.cgs2.fused"] - before == 2, "cgs2_lagged did not launch its kernel")
+            check(torch.equal(h, again) and torch.equal(Vk, Vs),
+                  f"cgs2_lagged j={j}: not bitwise repeatable")
+            # The rows to the input's scale; h~, sums of M products, to |v~|'s.
+            err, err_h = float((Vk[j - 1:j + 1] - want).abs().max()), float((h - h_ref).abs().max())
+            tol, tol_h = (8 * eps * j**0.5 * float(x) for x in (v.abs().max(), want[1].norm()))
+            check(err_h <= tol_h, f"cgs2 lagged j={j}: h~ off by {err_h:.3e} (tol {tol_h:.3e})")
+            del Vs, again, want
+            ms, samples = graph_ms(lambda: ck.cgs2_lagged(Vk, j, v, hp, passes), launches=5,
+                                   samples=10)
+            bound_ms = 1e3 * passes * j * m * Vk.element_size() / PEAK_HBM_BYTES
+            label = f"lagged {str(dtype)[6:]} j={j}"
+            print(f"  {label:20s} max abs err {err:.3e} (tol {tol:.3e}); graph {ms:.4f} ms, "
+                  f"{bound_ms / ms:.1%} of its {passes} reads' bound {bound_ms:.4f} ms")
+            print(f"    samples graph {fmt(samples)}")
+            check(err <= tol, f"cgs2 {label}: the kernel disagrees with its plain version")
+            cases[label] = dict(max_abs_err=err, tol=tol, reads=passes, ms=ms, bound_ms=bound_ms)
+            del Vk, v, c, h, h_ref
         del Vfull
         torch.cuda.empty_cache()
     at = cases["float32 j=399"]
     return dict(max_abs_err=max(c["max_abs_err"] for c in cases.values()), ms=at["ms"],
+                lagged_ms=cases["lagged float32 j=399"]["ms"],
                 plain_ms=at["plain_ms"], bound_ms=at["bound_ms"], bound_by="bytes", cases=cases)
 
 
@@ -654,7 +692,8 @@ def phase_flagship(lt):
         torch.cuda.reset_peak_memory_stats()
         sk.stencil_spmv.launches = 0
         sk.stencil_spmm.launches = 0
-        cgs2_before = (COUNTERS["lt.cgs2.calls"], COUNTERS["lt.cgs2.fused"])
+        cgs2_before = (COUNTERS["lt.cgs2.calls"], COUNTERS["lt.cgs2.fused"],
+                       COUNTERS["lt.cgs2.basis_reads"])
         t0 = time.perf_counter()
         res = lt.eigsh(H, k=k, n=n, which="SA", v0=v0)
         torch.cuda.synchronize()
@@ -677,6 +716,9 @@ def phase_flagship(lt):
         check(launches[1] >= 1, f"spmm launched {launches[1]} times, expected >= 1")
         check(launches[2] == cgs2_calls == n - 1,
               f"cgs2 launched {launches[2]} times for {cgs2_calls} CGS2 calls, expected {n - 1}")
+        reads = COUNTERS["lt.cgs2.basis_reads"] - cgs2_before[2]
+        check(reads == 2 * (n - 1) + 1,
+              f"the solve swept the basis {reads} times, expected {2 * (n - 1) + 1} (lagged)")
         runs[dtype] = dict(vals=vals, res=res, wall=wall, peak=peak, launches=launches,
                            tol=fp32_tolerance(H))
         del H, res

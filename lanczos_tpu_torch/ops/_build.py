@@ -153,8 +153,14 @@ def load_cgs2_library():
         # V, v, out, h, partial, M, j, passes, blocks, stream
         fn.argtypes = [ptr] * 5 + [ctypes.c_longlong, i32, i32, i32, ptr]
         fn.restype = i32
-    lib.cgs2_max_rows.argtypes = []
-    lib.cgs2_max_rows.restype = i32
+        step = getattr(lib, f"cgs2_step_{dt}")
+        # V, v, out, h_pend, h, partial, M, j, passes, blocks, stream
+        step.argtypes = [ptr] * 6 + [ctypes.c_longlong, i32, i32, i32, ptr]
+        step.restype = i32
+        update = getattr(lib, f"cgs2_update_{dt}")
+        # V, v, out, h, M, j, flagged, blocks, stream
+        update.argtypes = [ptr] * 4 + [ctypes.c_longlong, i32, i32, i32, ptr]
+        update.restype = i32
     return lib, info
 
 

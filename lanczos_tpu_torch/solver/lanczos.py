@@ -12,6 +12,9 @@ step to decide whether to run a reorthogonalization pass.
   The basis is sliced to its filled rows ``V[:j]``; the JAX package
   multiplies by the zero-padded ``(n, M)`` basis, whose zero rows
   contribute exactly 0.
+* ``lanczos_segment`` with full reorthogonalization, the default dots and
+  two or more passes lags each vector's last CGS update into the next
+  step (``_lagged_steps``), so the card reads the basis p times a step.
 * ``V`` is row-major ``(n, M)`` and is filled in place, as are the
   ``alpha``/``beta`` histories (PyTorch tensors are mutable; this saves a
   copy of the basis per step).
@@ -113,12 +116,14 @@ def _orthogonalize(V, v, basis_dot, passes: int):
     on the CPU the plain loop.  A row-sharded mesh's ``basis_dot``, which
     all-reduces each projection over the ranks, runs the plain loop with
     it.  Counts each call in ``COUNTERS["lt.cgs2.calls"]`` (the kernel's
-    launches are ``COUNTERS["lt.cgs2.fused"]``); inside a CUDA graph both
-    count the capture, not the replays.
+    launches are ``COUNTERS["lt.cgs2.fused"]``, its sweeps over V
+    ``COUNTERS["lt.cgs2.basis_reads"]``, the loop's 2 x passes); inside a
+    CUDA graph they count the capture, not the replays.
     """
     COUNTERS["lt.cgs2.calls"] += 1
     if basis_dot is _default_basis_dot:
         return cgs2_kernels.cgs2(V, v, passes)
+    COUNTERS["lt.cgs2.basis_reads"] += 2 * passes if V.shape[0] else 0
     return cgs2_kernels.cgs2_reference(V, v, passes, basis_dot)
 
 
@@ -151,7 +156,10 @@ def lanczos_segment(
     residual; ``alpha_h`` (n,) / ``beta_h`` (n-1,) are the histories filled
     up to j0.  Fills ``V``, ``alpha_h`` and ``beta_h`` in place and returns
     (V, r, alpha_h, beta_h, breakdown_iter).  ``compensated=True`` runs
-    every alpha/beta/norm reduction through ``dot2_rounded``.
+    every alpha/beta/norm reduction through ``dot2_rounded``.  Full
+    reorthogonalization with the default ``dot`` and ``basis_dot`` and
+    ``reorth_passes >= 2`` runs ``_lagged_steps``, the same recurrence in
+    exact arithmetic; every row is finished when the call returns.
     """
     dot = _resolve_dot(dot, compensated)
     if reorth not in ("full", "none", "periodic"):
@@ -160,7 +168,12 @@ def lanczos_segment(
         breakdown_tol = float(10 * torch.finfo(r.dtype).eps)
 
     COUNTERS["lt.lanczos.recurrence.steps"] += max(j1 - j0, 0)
+    lagged = (reorth == "full" and reorth_passes >= 2 and dot is _default_dot
+              and basis_dot is _default_basis_dot)
     with span("lt.lanczos.recurrence"):
+        if lagged:
+            return _lagged_steps(matvec, V, r, alpha_h, beta_h, breakdown_iter, j0, j1,
+                                 reorth_passes, breakdown_tol)
         for j in range(j0, j1):
             beta = torch.sqrt(dot(r, r))
             # Scale-aware breakdown test: beta relative to the basis scale (=1).
@@ -177,6 +190,54 @@ def lanczos_segment(
             r = w - alpha * v - beta * V[j - 1]
             alpha_h[j] = alpha
             beta_h[j - 1] = beta
+    return V, r, alpha_h, beta_h, breakdown_iter
+
+
+def _lagged_steps(matvec, V, r, alpha_h, beta_h, breakdown_iter, j0, j1, passes,
+                  breakdown_tol):
+    """``lanczos_segment``'s steps with CGS's last update lagged a step.
+
+    Step j leaves row j unfinished: ``cgs2_lagged`` stores v~ = s v_{p-1}
+    in ``V[j]`` and returns h~ = s h_p, and the unit vector CGS would store
+    is v_j = v~ - V[:j]^T h~.  The SpMV runs on v~, and the next step's
+    first sweep finishes ``V[j]`` while it projects the next vector, so the
+    card reads ``V[:j]`` p times a step instead of p + 1.  Since
+    H V[:j]^T = V[:j+1]^T T to rounding, v~ . H v~ = alpha_j + 2 beta_j
+    h~[j-1] + O(|h~|^2 |H|), which gives alpha_j; the residual r = H v~ -
+    alpha_j v~ - beta_j v_{j-1} differs from the plain one by
+    (H - alpha_j) V[:j]^T h~, which lies in span V[:j+1] and is removed by
+    the next step's CGS passes (it moves |r| by O(|h~|^2)).  The segment's
+    last row is finished before its SpMV, so the segment leaves ``V`` and
+    ``r`` in the plain recurrence's form, equal to rounding; past
+    ``MAX_ROWS`` rows a step finishes the row before it and runs ``cgs2``
+    (row blocks) unlagged.
+    """
+    h = None  # h~ of the unfinished row V[j - 1]; none at a segment's start
+    for j in range(j0, j1):
+        beta = torch.sqrt(torch.dot(r, r))
+        ok = beta > breakdown_tol
+        breakdown_iter = torch.where(ok, breakdown_iter, breakdown_iter.clamp(max=j))
+        v = r * torch.where(ok, 1.0 / torch.where(ok, beta, 1.0), 0.0)
+
+        COUNTERS["lt.cgs2.calls"] += 1
+        if j > cgs2_kernels.MAX_ROWS:
+            if h is not None:
+                cgs2_kernels.cgs2_finish(V, j, h)
+                h = None
+            V[j] = _normalized(cgs2_kernels.cgs2(V[:j], v, passes), torch.dot)
+        else:
+            h = cgs2_kernels.cgs2_lagged(V, j, v, h, passes)
+            if j == j1 - 1:
+                cgs2_kernels.cgs2_finish(V, j + 1, h)
+                h = None
+
+        w = matvec(V[j])
+        alpha = torch.dot(V[j], w)
+        if h is not None:
+            alpha = torch.addcmul(alpha, beta, h[j - 1], value=-2.0)
+        r = w - alpha * V[j] - beta * V[j - 1]
+        alpha_h[j] = alpha
+        beta_h[j - 1] = beta
     return V, r, alpha_h, beta_h, breakdown_iter
 
 

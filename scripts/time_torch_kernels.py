@@ -19,9 +19,11 @@ work per call outlasts the kernels):
 * ``apply_fused_interface`` of A at N=120 (138 classes, 11,598 rows);
 * ``CompositeV2.matvec`` at N=120;
 * CGS2, two passes against V[:j] at the regular cell's M = 4,096,000, in
-  fp32 and fp64 with j = 200 and 399: ``ops/cgs2_kernels.py:cgs2`` where
-  the package has it, and the plain loop (two cuBLAS GEMVs a pass) in
-  either tree (these cases alone also in fp64);
+  fp32 and fp64 with j = 200 and 399: ``ops/cgs2_kernels.py:cgs2`` (three
+  sweeps) and one step of the lagged recurrence, ``cgs2_lagged`` with a
+  row to finish (two sweeps), where the package has them, and the plain
+  loop (two cuBLAS GEMVs a pass) in either tree (these cases alone also
+  in fp64);
 * the launch floor: a one-element ``fill_`` replayed the same way.
 
 Prints one line per case and, last, one JSON object of them all.
@@ -120,15 +122,26 @@ def main():
             v = v - (V @ v) @ V
         return v
 
+    lagged = getattr(ck, "cgs2_lagged", None)
     m = 4_096_000
     for dtype in (torch.float32, torch.float64):
-        V = torch.randn(399, m, generator=gen, device="cuda", dtype=dtype) / m**0.5
+        # Row j is the lagged step's output; its finish moves row j - 1 by
+        # ~1e-7 of itself a call, which changes no time.  Each lagged case
+        # takes a unit vector of its own: one that an earlier case stored
+        # as a row would lie in the span and raise the finish-now flag.
+        V = torch.randn(400, m, generator=gen, device="cuda", dtype=dtype) / m**0.5
         v = torch.randn(m, generator=gen, device="cuda", dtype=dtype) / m**0.5
         for j in (200, 399):
             tag = f"{str(dtype)[6:]} j={j}"
             if ck is not None:
                 case(f"cgs2 {tag}", lambda j=j: ck.cgs2(V[:j], v, 2), launches=5,
                      eager_launches=10)
+            if lagged is not None:
+                hp = torch.randn(j - 1, generator=gen, device="cuda", dtype=dtype) * 1e-7
+                u = torch.randn(m, generator=gen, device="cuda", dtype=dtype)
+                u /= u.norm()
+                case(f"cgs2 lagged {tag}", lambda j=j, hp=hp, u=u: lagged(V, j, u, hp, 2),
+                     launches=5, eager_launches=10)
             case(f"cgs2 loop {tag}", lambda j=j: loop(V[:j], v), launches=5, eager_launches=10)
         del V, v
         torch.cuda.empty_cache()

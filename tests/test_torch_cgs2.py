@@ -127,9 +127,16 @@ def load_tile(V, v, j, C, c0, kload, kv):
 
 
 def sweep(mode, V, v, h, blocks, elem, kload):
-    """One launch of cgs2_sweep (mode "project", "fused" or "update") and,
-    but for "update", its cgs2_reduce: (out or None, h or None)."""
+    """One launch of cgs2_sweep (mode "project", "fused", "update", "finish"
+    or "fusednorm") and, but for "update", the block sums added in block
+    order (cgs2_reduce; cgs2_reduce_norm's scaling is left to the caller):
+    (out or None, sums or None).  "finish" updates row j - 1 of V by the
+    rows before it (written back to the tile, and to out) and projects v;
+    "fusednorm" is "fused" with the new vector written to the tile's row j,
+    so that one more step-B row gives its squared norm."""
     j, M = V.shape
+    ja = j - 1 if mode == "finish" else j  # step A: rows [0, ja) update row ja
+    jb = j + 1 if mode == "fusednorm" else j  # step B: rows [0, jb)
     kv = 16 // elem
     C = tile_cols(j, elem)
     assert C >= K["kRowBytes"] // elem and C % (8 * kv) == 0  # whole swizzle periods
@@ -140,20 +147,20 @@ def sweep(mode, V, v, h, blocks, elem, kload):
     while lanes < 32 and 2 * lanes * nchunks <= THREADS:
         lanes *= 2
     assert 32 % lanes == 0 and THREADS % 32 == 0
-    nseg = max(1, min(THREADS // j, nchunks))
+    nseg = max(1, min(THREADS // jb, nchunks))
     seg_len = -(-nchunks // nseg)
-    npairs = j * nseg
+    npairs = jb * nseg
     assert npairs <= K["kMaxPairs"] * THREADS and npairs <= 2 * (j + 1) * C
     q = np.arange(npairs)
-    prow, pseg = q % j, q // j
+    prow, pseg = q % jb, q // jb
     k0, k1 = pseg * seg_len, np.minimum(pseg * seg_len + seg_len, nchunks)
-    covered = np.zeros((j, nchunks), int)
+    covered = np.zeros((jb, nchunks), int)
     for r, a, b in zip(prow, k0, k1):
         covered[r, a:b] += 1
     assert (covered == 1).all()  # each (row, chunk) in one pair
 
     out = np.full(M, np.nan) if mode != "project" else None
-    partial = np.zeros((blocks, j))
+    partial = np.zeros((blocks, jb))
     for b in range(blocks):
         acc = np.zeros(npairs)
         for tile in range(b, ntiles, blocks):
@@ -167,25 +174,28 @@ def sweep(mode, V, v, h, blocks, elem, kload):
                 # Item p = (chunk p // lanes, rows p % lanes :: lanes),
                 # read as whole chunks at their swizzled place.
                 sums = np.zeros((lanes, C))
-                seen = np.zeros((j, nchunks), int)
+                seen = np.zeros((ja, nchunks), int)
                 for p in range(nchunks * lanes):
                     k, g = divmod(p, lanes)
-                    rows = np.arange(g, j, lanes)
+                    rows = np.arange(g, ja, lanes)
                     seen[rows, k] += 1
                     phys = rows[:, None] * C + ((k ^ (rows[:, None] & 7)) * kv + np.arange(kv))
                     sums[g, k * kv:(k + 1) * kv] = h[rows] @ stage[phys]
                 assert (seen == 1).all()  # each (row, chunk) in one item
-                vnew = vrow - sums.sum(axis=0)
+                x = stage[swz(ja, cols, C, kv)] - sums.sum(axis=0)
                 live = c0 + cols < M
                 assert np.isnan(out[c0 + cols[live]]).all()  # one writer a column
-                out[c0 + cols[live]] = vnew[live]
+                out[c0 + cols[live]] = x[live]
+                if mode in ("finish", "fusednorm"):
+                    stage[swz(ja, cols, C, kv)] = x
+                vnew = vrow if mode == "finish" else x
             if mode != "update":
                 for i in range(npairs):
                     r, sw = prow[i], prow[i] & 7
                     for k in range(k0[i], k1[i]):
                         phys = r * C + (k ^ sw) * kv + np.arange(kv)
                         acc[i] += stage[phys] @ vnew[k * kv:(k + 1) * kv]
-        partial[b] = acc.reshape(nseg, j).sum(axis=0)
+        partial[b] = acc.reshape(nseg, jb).sum(axis=0)
     if mode == "update":
         assert not np.isnan(out).any()
         return out, None
@@ -212,6 +222,24 @@ def emulate(V, v, passes, blocks, elem, kload):
     return out
 
 
+def emulate_step(V, j, v, hp, passes, blocks, elem, kload):
+    """run_step: "finish" (or "project" without a pending row), passes - 2
+    "fused", then "fusednorm": (the finished row or None, v_{p-1}, h_p,
+    |v_{p-1}|^2) before cgs2_reduce_norm's scaling."""
+    V = V.copy()
+    finished = None
+    if hp is not None:
+        finished, h = sweep("finish", V[:j], v, hp, blocks, elem, kload)
+        V[j - 1] = finished
+    else:
+        _, h = sweep("project", V[:j], v, None, blocks, elem, kload)
+    src = v
+    for _ in range(passes - 2):
+        src, h = sweep("fused", V[:j], src, h, blocks, elem, kload)
+    x, hn = sweep("fusednorm", V[:j], src, h, blocks, elem, kload)
+    return finished, x, hn[:j], hn[j]
+
+
 # (element bytes, j, M, blocks, 16-byte copies): C capped at 8 KB a row
 # (j=1), wide tiles with several column segments a row (j=37), the
 # unaligned element copies (j=150, M odd), 32 lanes a chunk in step A
@@ -235,8 +263,55 @@ def test_kernel_index_math_emulated(elem, j, m, blocks, aligned):
         np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=1e-11 * np.abs(v).max())
 
 
+@pytest.mark.parametrize("elem, j, m, blocks, aligned", [c for c in CASES if c[1] <= MAX_ROWS])
+def test_lagged_step_index_math_emulated(elem, j, m, blocks, aligned):
+    """The lagged step's sweeps (kFinish with a pending row, kFusedNorm),
+    emulated, against the plain step: the finished row, v_{p-1}, h_p and
+    |v_{p-1}|^2 before the scaling; where the rows are orthonormal also
+    cgs2_lagged's scaled v~ and h~ against the emulation scaled as
+    cgs2_reduce_norm scales it."""
+    rng = np.random.default_rng(j)
+    V = _basis(j + 1, m).numpy() if j + 1 <= m else rng.standard_normal((j + 1, m)) / np.sqrt(m)
+    hp = rng.uniform(-1e-3, 1e-3, j - 1) if j >= 2 else None
+    if hp is not None:
+        V[j - 1] += hp @ V[: j - 1]
+    v = rng.standard_normal(m)
+    kload = 16 // elem if aligned else 1
+    for passes in (2, 3):
+        finished, x, h, n2 = emulate_step(V, j, v, hp, passes, blocks, elem, kload)
+        W = V.copy()
+        if hp is not None:
+            W[j - 1] -= hp @ W[: j - 1]
+            np.testing.assert_allclose(finished, W[j - 1], rtol=0, atol=1e-12)
+        want_h = W[:j] @ v
+        want_x = v
+        for _ in range(passes - 1):
+            want_x = want_x - want_h @ W[:j]
+            want_h = W[:j] @ want_x
+        scale = np.abs(v).max() * max(1.0, np.abs(want_h).max())
+        np.testing.assert_allclose(x, want_x, rtol=0, atol=1e-11 * scale)
+        np.testing.assert_allclose(h, want_h, rtol=0, atol=1e-11 * scale * np.sqrt(m))
+        np.testing.assert_allclose(n2, want_x @ want_x, rtol=1e-11)
+        if j + 1 <= m:
+            s = 1 / np.sqrt(n2 - h @ h)
+            Vt = torch.from_numpy(V.copy())
+            got_h = ck_lagged(Vt, j, v, hp, passes)
+            np.testing.assert_allclose(Vt[j].numpy(), s * x, rtol=0, atol=1e-11 * np.abs(s * x).max())
+            np.testing.assert_allclose(got_h, s * h, rtol=0, atol=1e-11 * scale * np.sqrt(m))
+
+
+def ck_lagged(V, j, v, hp, passes):
+    return cgs2_kernels.cgs2_lagged(V, j, torch.from_numpy(v),
+                                    None if hp is None else torch.from_numpy(hp), passes).numpy()
+
+
 def test_max_rows_is_the_tile_capacity():
     # j + 1 rows of 128 bytes fill a stage; one more row does not fit.
     for elem in (4, 8):
         assert tile_cols(MAX_ROWS, elem) * elem == K["kRowBytes"]
         assert tile_cols(MAX_ROWS + 1, elem) == 0
+
+
+def test_the_wrappers_row_capacity_is_the_kernels():
+    assert cgs2_kernels.MAX_ROWS == MAX_ROWS
+    assert K["kNormThreads"] > MAX_ROWS  # cgs2_reduce_norm: a row a thread, j + 1 rows

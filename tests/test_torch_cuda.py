@@ -99,6 +99,29 @@ def test_cuda_kernels_match_reference(dtype):
 
 
 @pytest.mark.cuda
+def test_cuda_eigsh_fp64_matches_cpu_fp64():
+    """The fp64 solve on the card (the lagged recurrence, every step on the
+    kernel) against the same solve on the CPU: the eigenvalues fp64 has
+    converged agree to 1e-10 ||H||_G, whatever the summation order."""
+    _require_card()
+    v0 = np.random.default_rng(4).uniform(-1, 1, 12**3)
+    on = {}
+    for dev in ("cuda", "cpu"):
+        H = pt.build_regular_hamiltonian(12, 25.0, pt.deuteron_potential_3d, stencil="27",
+                                         dtype=torch.float64, device=dev)
+        fused = COUNTERS["lt.cgs2.fused"]
+        on[dev] = pt.eigsh(H, k=4, n=80, v0=v0)
+        assert COUNTERS["lt.cgs2.fused"] - fused == (79 if dev == "cuda" else 0)
+    norm = float(H.weights.abs().sum()) + float(H.diag.abs().max())
+    ref, got = on["cpu"], on["cuda"]
+    converged = ref.residuals.numpy() < 1e-10 * norm
+    assert converged[0]
+    vals = got.eigenvalues.cpu().numpy()
+    for lam in ref.eigenvalues.numpy()[converged]:
+        assert np.min(np.abs(vals - lam)) <= 1e-10 * norm, (lam, vals)
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_raises_instead_of_falling_back():
     _require_card()
     op = pt.build_regular_hamiltonian(6, 25.0, pt.deuteron_potential_3d, device="cuda")
@@ -120,9 +143,11 @@ def test_cuda_eigsh_matches_cpu_fp64():
         device="cpu",
     )
     launches, cgs2_launches = sk.stencil_spmv.launches, COUNTERS["lt.cgs2.fused"]
+    reads = COUNTERS["lt.cgs2.basis_reads"]
     r32 = pt.eigsh(H32, k=4, n=80, v0=v0)
     assert sk.stencil_spmv.launches == launches + 80
     assert COUNTERS["lt.cgs2.fused"] == cgs2_launches + 79  # every step's CGS2 ran the kernel
+    assert COUNTERS["lt.cgs2.basis_reads"] - reads == 2 * 79 + 1  # lagged: 2 a step, 1 to close
     r64 = pt.eigsh(H64, k=4, n=80, v0=v0)
     # fp32 storage of H moves eigenvalues by <= eps32/2 * ||H||_G (Weyl); the
     # fp32 SpMVs round by about as much again.
@@ -382,7 +407,7 @@ def test_cuda_cgs2_odd_shapes_match_the_loop(dtype):
     eps = torch.finfo(dtype).eps
     gen = torch.Generator(device="cuda").manual_seed(17)
     for m, j, offset in ((100_003, 37, 0), (100_003, 399, 0), (65_536, 600, 1),
-                         (65_536, ck.max_rows(), 0)):
+                         (65_536, ck.MAX_ROWS, 0)):
         q = torch.linalg.qr(torch.randn(m, j, generator=gen, dtype=torch.float64, device="cuda")).Q
         V = q.T.contiguous().to(dtype)
         del q
@@ -438,7 +463,7 @@ def test_cuda_cgs2_beyond_one_tile_runs_row_blocks(dtype):
     gen = torch.Generator(device="cuda").manual_seed(3)
     m = 65_536
     cases = []
-    for j in (ck.max_rows() + 1, 2 * ck.max_rows() + 5):
+    for j in (ck.MAX_ROWS + 1, 2 * ck.MAX_ROWS + 5):
         V = torch.randn(j, m, generator=gen, dtype=dtype, device="cuda") / m**0.5
         cases.append((f"j={j}", V, torch.randn(m, generator=gen, dtype=dtype, device="cuda")))
     wide = torch.randn(300, m + 40, generator=gen, dtype=dtype, device="cuda") / m**0.5
@@ -460,6 +485,202 @@ def test_cuda_cgs2_beyond_one_tile_runs_row_blocks(dtype):
         assert COUNTERS["lt.cgs2.fused"] - fused == 4  # two through _orthogonalize, two direct
     with pytest.raises(TypeError):  # no kernel for other dtypes
         ck.cgs2(V.half(), v.half(), 2)
+
+
+def _lagged_case(V64, j, dtype, seed, pending):
+    """(V, v, h_pending) for one lagged step at row j: V (j + 1, M) in
+    ``dtype`` whose row j - 1, when ``pending``, is its orthonormal row
+    plus V[:j-1]^T h with h of size ~1e-3 (what the step finishes).  Row
+    j, the step's output, is zero where V64 has no row j."""
+    V = torch.zeros(j + 1, V64.shape[1], dtype=torch.float64, device="cuda")
+    V[: min(j + 1, V64.shape[0])] = V64[: j + 1]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    hp = None
+    if pending:
+        hp = (torch.rand(j - 1, generator=gen, dtype=torch.float64, device="cuda") - 0.5) * 2e-3
+        V[j - 1] += hp @ V[: j - 1]
+        hp = hp.to(dtype)
+    return V.to(dtype), _cgs2_input(V64, j, dtype, seed), hp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_cgs2_lagged_matches_the_plain_step(cgs2_bases, dtype):
+    """One step of the lagged recurrence on the card (kFinish, then the
+    fused sweep with the norm, then the scale) against its plain version at
+    j = 1, 2, 40, 399 (M = 4,096,000 and 280,000), with and without a
+    pending row: the finished row and the stored v~ a few ulps times
+    sqrt(j) of the input's scale apart, the returned h~ (sums over M of
+    unit rows times v~, itself rounding noise) a few ulps times sqrt(j) of
+    |v~|, bitwise the same from call to call; passes = 3 runs one more
+    fused sweep.  v~ - V[:j]^T h~ is the unit vector the plain CGS2
+    stores, to the same order.  Each call counts its sweeps."""
+    eps = torch.finfo(dtype).eps
+    for m in (4_096_000, 280_000):
+        V64, _ = cgs2_bases[m]
+        for j, pending, passes in ((1, False, 2), (2, True, 2), (40, True, 2), (40, False, 3),
+                                   (399, True, 2), (399, True, 3)):
+            V, v, hp = _lagged_case(V64, j, dtype, seed=j, pending=pending)
+            tol = 8 * eps * j**0.5 * float(v.abs().max())
+            Vw, Vr = V.clone(), V.clone()
+            reads, fused = COUNTERS["lt.cgs2.basis_reads"], COUNTERS["lt.cgs2.fused"]
+            h = ck.cgs2_lagged(Vw, j, v, hp, passes)
+            assert COUNTERS["lt.cgs2.basis_reads"] - reads == passes
+            assert COUNTERS["lt.cgs2.fused"] - fused == 1
+            h_ref = ck.cgs2_lagged_reference(Vr, j, v, hp, passes)
+            assert torch.equal(Vw[: j - 1], V[: j - 1])  # the other rows are left as they were
+            assert torch.equal(h, ck.cgs2_lagged(V, j, v, hp, passes)) and torch.equal(V, Vw)
+            torch.cuda.synchronize()
+            tol_h = 8 * eps * j**0.5 * float(Vr[j].norm())
+            for name, got, want, bound in (("finished row", Vw[j - 1], Vr[j - 1], tol),
+                                           ("v~", Vw[j], Vr[j], tol),
+                                           ("h~", h, h_ref, tol_h)):
+                err = float((got - want).abs().max())
+                assert err <= bound, (m, j, passes, name, err, bound)
+            unit = (Vw[j] - h @ Vw[:j]).double()
+            plain = ck.cgs2_reference(Vr[:j], v, passes)
+            plain = (plain / plain.norm()).double()
+            assert float((unit - plain).abs().max()) <= 2 * tol, (m, j, passes)
+            del V, Vw, Vr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_cgs2_lagged_at_the_tile_capacity_and_past_it(dtype):
+    """The lagged step at j = 831 (the most rows one tile holds: step B's
+    two pairs a thread, the norm's row 832), and past it: cgs2_finish of
+    row 1000 in row blocks, and a lagged Lanczos run whose steps cross 831
+    (the row they cross at finished, then cgs2 unlagged), against plain
+    versions; misaligned rows take the element copies."""
+    from lanczos_tpu_torch.solver.lanczos import lanczos_kernel
+
+    _require_card()
+    eps = torch.finfo(dtype).eps
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    m = 65_536
+    for mm in (m, m + 3):
+        q = torch.linalg.qr(torch.randn(mm, 1002, generator=gen, dtype=torch.float64,
+                                        device="cuda")).Q
+        V64 = q.T.contiguous()
+        del q
+        j = ck.MAX_ROWS
+        V, v, hp = _lagged_case(V64, j, dtype, seed=3, pending=True)
+        tol = 8 * eps * j**0.5 * float(v.abs().max())
+        Vw, Vr = V.clone(), V.clone()
+        h = ck.cgs2_lagged(Vw, j, v, hp, 2)
+        h_ref = ck.cgs2_lagged_reference(Vr, j, v, hp, 2)
+        torch.cuda.synchronize()
+        for got, want in ((Vw[j - 1], Vr[j - 1]), (Vw[j], Vr[j]), (h, h_ref)):
+            assert float((got - want).abs().max()) <= tol + 4 * eps * float(want.abs().max())
+        j = 1001
+        V, _, hp = _lagged_case(V64, j, dtype, seed=4, pending=True)
+        Vw = V.clone()
+        reads = COUNTERS["lt.cgs2.basis_reads"]
+        ck.cgs2_finish(Vw, j, hp)
+        assert COUNTERS["lt.cgs2.basis_reads"] - reads == 1
+        want = V[j - 1] - hp @ V[: j - 1]
+        torch.cuda.synchronize()
+        assert float((Vw[j - 1] - want).abs().max()) <= 8 * eps * j**0.5
+        assert torch.equal(Vw[: j - 1], V[: j - 1]) and torch.equal(Vw[j:], V[j:])
+        del V64, V, Vw, Vr
+    # A Lanczos run across the tile's capacity on a diagonal operator.
+    d = torch.linspace(-1.0, 1.0, 4000, dtype=dtype, device="cuda")
+    v0 = torch.rand(4000, generator=gen, dtype=dtype, device="cuda") - 0.5
+    n = ck.MAX_ROWS + 12
+    reads, fused = COUNTERS["lt.cgs2.basis_reads"], COUNTERS["lt.cgs2.fused"]
+    fac = lanczos_kernel(lambda x: d * x, v0, n)
+    assert COUNTERS["lt.cgs2.fused"] - fused == n - 1
+    past = n - 1 - ck.MAX_ROWS  # steps past the tile: cgs2 in row blocks, 2p reads
+    assert COUNTERS["lt.cgs2.basis_reads"] - reads == 2 * ck.MAX_ROWS + 1 + 4 * past
+    V = fac.V.double()
+    orth = float((V @ V.T - torch.eye(n, dtype=torch.float64, device="cuda")).abs().max())
+    assert orth <= 20 * eps * n**0.5, orth
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_cgs2_lagged_captured_equals_eager(cgs2_bases, dtype):
+    """Two lagged steps and the closing finish captured in a CUDA graph
+    replay the kernels bitwise as their eager calls; the counters count the
+    capture, not the replays."""
+    V64, V32 = cgs2_bases[280_000]
+    j = 200
+    V0, v, hp = _lagged_case(V64, j, dtype, seed=5, pending=True)
+    w = _cgs2_input(V64, j + 1, dtype, seed=6)
+
+    def steps(V):
+        h = ck.cgs2_lagged(V, j, v, hp, 2)
+        h = ck.cgs2_lagged(V, j + 1, w, h, 2)
+        ck.cgs2_finish(V, j + 2, h)
+        return h
+
+    pad = torch.zeros(2, V0.shape[1], dtype=dtype, device="cuda")
+    eager_V = torch.cat([V0, pad])
+    eager = steps(eager_V)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        steps(torch.cat([V0, pad]))
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    Vg = torch.cat([V0, pad])
+    fused, reads = COUNTERS["lt.cgs2.fused"], COUNTERS["lt.cgs2.basis_reads"]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = steps(Vg)
+    Vg.copy_(torch.cat([V0, pad]))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert COUNTERS["lt.cgs2.fused"] - fused == 2
+    assert COUNTERS["lt.cgs2.basis_reads"] - reads == 5
+    assert torch.equal(captured, eager) and torch.equal(Vg, eager_V)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_cgs2_lagged_finishes_a_vector_mostly_in_the_span(dtype):
+    """The card's flag: a unit v of which two passes keep |v_p| = 0.3 has
+    its row finished by the conditional sweep and zero h~ returned; at 0.6
+    the row stays unfinished and the sweep returns at once; each against
+    the plain step.  Then n = M = 512 on the N=8 deuteron, where the spent
+    Krylov space raises the flag: the rows stay orthonormal and T's
+    eigenvalues are H's, as in the plain recurrence on the card."""
+    from lanczos_tpu_torch.solver.lanczos import lanczos_kernel
+
+    _require_card()
+    eps = torch.finfo(dtype).eps
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    m, j = 65_536, 40
+    q = torch.linalg.qr(torch.randn(m, j + 2, generator=gen, dtype=torch.float64,
+                                    device="cuda")).Q
+    for kept, finished in ((0.3, True), (0.6, False)):
+        c = torch.randn(j, generator=gen, dtype=torch.float64, device="cuda")
+        v = (kept * q[:, j + 1] + (1 - kept**2) ** 0.5 * (c / c.norm()) @ q.T[:j]).to(dtype)
+        V = q.T[: j + 1].contiguous().to(dtype)
+        Vr = V.clone()
+        h = ck.cgs2_lagged(V, j, v, None, 2)
+        h_ref = ck.cgs2_lagged_reference(Vr, j, v, None, 2)
+        torch.cuda.synchronize()
+        assert bool((h == 0).all()) == finished and bool((h_ref == 0).all()) == finished
+        tol = 8 * eps * j**0.5 * float(v.abs().max()) / kept
+        assert float((V[j] - Vr[j]).abs().max()) <= tol, (kept, dtype)
+        assert float((h - h_ref).abs().max()) <= 8 * eps * j**0.5 / kept
+    H = pt.build_regular_hamiltonian(8, 25.0, pt.deuteron_potential_3d, stencil="27",
+                                     dtype=dtype, device="cuda")
+    v0 = torch.rand(512, generator=gen, dtype=dtype, device="cuda") - 0.5
+    exact = np.linalg.eigvalsh(H.to_dense().double().cpu().numpy())
+
+    def ritz(fac):
+        a, b = fac.alpha.double().cpu().numpy(), fac.beta.double().cpu().numpy()
+        return np.linalg.eigvalsh(np.diag(a) + np.diag(b, 1) + np.diag(b, -1))
+
+    lagged = lanczos_kernel(H.matvec, v0, 512)
+    plain = lanczos_kernel(H.matvec, v0, 512, dot=lambda a, b: torch.dot(a, b))
+    V = lagged.V.double()
+    eye = torch.eye(512, dtype=torch.float64, device="cuda")
+    assert float((V @ V.T - eye).abs().max()) < 4 * 512**0.5 * eps
+    err = np.abs(ritz(lagged) - exact).max()
+    assert err <= 2 * max(np.abs(ritz(plain) - exact).max(), 1e-12 * np.abs(exact).max())
 
 
 @lru_cache(maxsize=None)

@@ -32,15 +32,21 @@ def _deuteron(n):
 # reorthogonalization the two recurrences agree to rounding; with less, the
 # rounding differences grow once orthogonality is lost, so those runs stop
 # before that happens on this operator.
+# The port's full runs take the lagged recurrence (solver/lanczos.py:
+# _lagged_steps) at 2 and 3 passes; the JAX package's the plain one.
 @pytest.mark.parametrize(
-    "reorth,n,tol", [("full", 40, 1e-10), ("selective", 40, 1e-10), ("periodic", 20, 1e-10),
-                     ("none", 15, 1e-8)]
+    "reorth,n,tol,passes",
+    [pytest.param("full", 40, 1e-10, 2, id="full-40-1e-10"),
+     pytest.param("full", 40, 1e-10, 3, id="full-40-1e-10-passes3"),
+     pytest.param("selective", 40, 1e-10, 2, id="selective-40-1e-10"),
+     pytest.param("periodic", 20, 1e-10, 2, id="periodic-20-1e-10"),
+     pytest.param("none", 15, 1e-8, 2, id="none-15-1e-08")],
 )
-def test_lanczos_matches_jax(reorth, n, tol):
+def test_lanczos_matches_jax(reorth, n, tol, passes):
     H, P = _deuteron(8)
     v0 = np.random.default_rng(1).uniform(-1, 1, H.shape[0])
-    fj = jax_lanczos_kernel(H.matvec, v0, n, reorth=reorth)
-    fp = lanczos_kernel(P.matvec, torch.from_numpy(v0), n, reorth=reorth)
+    fj = jax_lanczos_kernel(H.matvec, v0, n, reorth=reorth, reorth_passes=passes)
+    fp = lanczos_kernel(P.matvec, torch.from_numpy(v0), n, reorth=reorth, reorth_passes=passes)
     scale = float(np.max(np.abs(np.asarray(fj.alpha))))
     np.testing.assert_allclose(fp.alpha.numpy(), np.asarray(fj.alpha), atol=tol * scale)
     np.testing.assert_allclose(fp.beta.numpy(), np.asarray(fj.beta), atol=tol * scale)
