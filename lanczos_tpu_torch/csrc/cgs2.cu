@@ -4,7 +4,7 @@
 // Replaces no TPU kernel.  The JAX package's CGS2
 // (lanczos_tpu/solver/lanczos.py:_orthogonalize) is two plain matmuls a
 // pass left to XLA, and the port's plain version
-// (lanczos_tpu_torch/solver/lanczos.py:_orthogonalize) two cuBLAS GEMVs a
+// (lanczos_tpu_torch/ops/cgs2_kernels.py:cgs2_reference) two cuBLAS GEMVs a
 // pass, h = V v and v - h V, each reading the whole (j, M) basis V[:j]:
 // 2p reads of V for p passes.  At N=160^3 (M = 4,096,000, fp32, j up to
 // 399) that is 16.4 MB a row, and the regular solve spends ~93% of its

@@ -18,20 +18,26 @@ vector's last update into the next step's first sweep:
 coefficients that finish it, and finishes the row before it;
 :func:`cgs2_finish` finishes the last one.
 
-Dispatch is by the tensor's device: a CPU tensor goes to the plain
-version, a CUDA tensor of float32 or float64 launches the kernel (for
-:func:`cgs2` any number of rows; a view that is not contiguous is copied
-first).  ``COUNTERS["lt.cgs2.fused"]`` counts the calls of :func:`cgs2` and
-:func:`cgs2_lagged` that launched the kernel, incremented after a
-successful launch and nowhere else; ``COUNTERS["lt.cgs2.basis_reads"]``
-adds the sweeps over the basis each call makes on the card (the plain
-version on the CPU counts the same, so that the paths are told apart on
-any device).  Inside a CUDA graph both count the capture, not the replays.
+A solver orthogonalizes through :func:`orthogonalize` or
+:func:`cgs2_lagged`: this module alone picks the kernel, its row blocks or
+a plain version, and alone keeps the ``lt.cgs2.*`` counters.  Dispatch is
+by the tensor's device: a CPU tensor goes to the plain version, a CUDA
+tensor of float32 or float64 launches the kernel (for :func:`cgs2` any
+number of rows; a view that is not contiguous is copied first).
+``COUNTERS["lt.cgs2.calls"]`` counts the calls of
+:func:`orthogonalize` and :func:`cgs2_lagged`; ``COUNTERS["lt.cgs2.fused"]``
+counts the calls of :func:`cgs2` and :func:`cgs2_lagged` that launched the
+kernel, incremented after a successful launch and nowhere else;
+``COUNTERS["lt.cgs2.basis_reads"]`` adds the sweeps over the basis each
+call makes on the card (the plain version on the CPU counts the same, so
+that the paths are told apart on any device).  Inside a CUDA graph they
+count the capture, not the replays.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 
@@ -39,7 +45,7 @@ from .._util import COUNTERS
 from ._build import launch_on
 
 __all__ = ["MAX_ROWS", "cgs2", "cgs2_finish", "cgs2_lagged", "cgs2_lagged_reference",
-           "cgs2_reference"]
+           "cgs2_reference", "local_basis_dot", "orthogonalize"]
 
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -53,12 +59,19 @@ MAX_ROWS = 831
 _FINISH_BELOW = 0.25
 
 
-def cgs2_reference(V: torch.Tensor, v: torch.Tensor, passes: int, basis_dot=None) -> torch.Tensor:
+def local_basis_dot(V: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The projections ``V @ v`` (j,) of ``v`` (M,) on the rows of an
+    unsharded basis ``V`` (j, M)."""
+    return V @ v
+
+
+def cgs2_reference(V: torch.Tensor, v: torch.Tensor, passes: int,
+                   basis_dot=local_basis_dot) -> torch.Tensor:
     """Plain PyTorch: ``passes`` CGS passes of ``v`` against the rows of
-    ``V``; ``basis_dot(V, v)`` in place of ``V @ v`` where given (a row-sharded
-    mesh's all-reduced product)."""
+    ``V``; ``basis_dot(V, v)`` gives the projections (a row-sharded mesh's
+    all-reduced product in place of ``V @ v``)."""
     for _ in range(passes):
-        h = V @ v if basis_dot is None else basis_dot(V, v)
+        h = basis_dot(V, v)
         v = v - h @ V
     return v
 
@@ -116,6 +129,21 @@ def cgs2(V: torch.Tensor, v: torch.Tensor, passes: int) -> torch.Tensor:
     return out
 
 
+def orthogonalize(V: torch.Tensor, v: torch.Tensor, passes: int,
+                  basis_dot=local_basis_dot) -> torch.Tensor:
+    """``passes`` CGS passes of ``v`` (M,) against the rows of ``V`` (j, M),
+    returned as a new tensor.  With :func:`local_basis_dot` it runs
+    :func:`cgs2`: on the card the kernel, p + 1 sweeps over ``V`` instead of
+    2p (2p in row blocks past :data:`MAX_ROWS`), on the CPU the plain loop.
+    Any other ``basis_dot`` (a row-sharded mesh's, which all-reduces each
+    projection over the ranks) runs the plain loop with it, 2p sweeps."""
+    COUNTERS["lt.cgs2.calls"] += 1
+    if basis_dot is local_basis_dot:
+        return cgs2(V, v, passes)
+    COUNTERS["lt.cgs2.basis_reads"] += 2 * passes if V.shape[0] else 0
+    return cgs2_reference(V, v, passes, basis_dot)
+
+
 def cgs2_lagged_reference(V, j, v, h_pending, passes):
     """Plain PyTorch: :func:`cgs2_lagged`, GEMV by GEMV (the flag read on the
     host)."""
@@ -136,10 +164,12 @@ def cgs2_lagged_reference(V, j, v, h_pending, passes):
     return h
 
 
-def cgs2_lagged(V: torch.Tensor, j: int, v: torch.Tensor, h_pending, passes: int) -> torch.Tensor:
+def cgs2_lagged(V: torch.Tensor, j: int, v: torch.Tensor, h_pending,
+                passes: int) -> Optional[torch.Tensor]:
     """One step of the lagged CGS of ``v``, a unit vector or zero (a
     Lanczos step's r / beta), against the basis ``V`` (n, M), ``passes`` >= 2
-    passes in ``passes`` sweeps over ``V[:j]``, 1 <= j <= :data:`MAX_ROWS`.
+    passes in ``passes`` sweeps over ``V[:j]``, j >= 1.  Counts the call in
+    ``COUNTERS["lt.cgs2.calls"]``.
 
     Where ``h_pending`` (j - 1,) is given, row j - 1 is unfinished; it is
     finished first, ``V[j-1] -= h_pending @ V[:j-1]``, in place (on the card
@@ -159,15 +189,26 @@ def cgs2_lagged(V: torch.Tensor, j: int, v: torch.Tensor, h_pending, passes: int
     the row is finished at once (a conditional sweep, without a host read)
     and the call returns zeros.  That sweep is not counted in
     ``COUNTERS["lt.cgs2.basis_reads"]``, which counts the sweeps every call
-    makes."""
+    makes.
+
+    Past :data:`MAX_ROWS` rows nothing is lagged: the pending row is
+    finished (:func:`cgs2_finish`), ``V[j]`` gets the unit vector of
+    :func:`cgs2` (row blocks, 2p sweeps) and the call returns ``None``."""
+    COUNTERS["lt.cgs2.calls"] += 1
+    if j > MAX_ROWS:
+        if h_pending is not None:
+            cgs2_finish(V, j, h_pending)
+        v = cgs2(V[:j], v, passes)
+        nrm = torch.sqrt(torch.dot(v, v))
+        V[j] = v * torch.where(nrm > 0, 1.0 / nrm, 0.0)
+        return None
     COUNTERS["lt.cgs2.basis_reads"] += passes
     if V.device.type == "cpu":
         return cgs2_lagged_reference(V, j, v, h_pending, passes)
     _check(V, v)
-    if not V.is_contiguous() or not 1 <= j <= MAX_ROWS or j >= V.shape[0] or passes < 2:
-        raise ValueError(f"cgs2_lagged takes a contiguous V (n, M), 1 <= j <= {MAX_ROWS}, "
-                         f"j < n and passes >= 2; got V {tuple(V.shape)}, j={j}, "
-                         f"passes={passes}")
+    if not V.is_contiguous() or j < 1 or j >= V.shape[0] or passes < 2:
+        raise ValueError(f"cgs2_lagged takes a contiguous V (n, M), 1 <= j < n and "
+                         f"passes >= 2; got V {tuple(V.shape)}, j={j}, passes={passes}")
     if h_pending is not None and (tuple(h_pending.shape) != (j - 1,) or j < 2
                                   or h_pending.dtype != V.dtype or not h_pending.is_contiguous()):
         raise ValueError(f"h_pending must be a contiguous ({j - 1},) vector of V's dtype")

@@ -41,11 +41,11 @@ import numpy as np
 import torch
 
 from .._util import to_numpy
+from ..ops.cgs2_kernels import local_basis_dot
 from ..ops.operators import LinearOperator
 from .graphs import CycleGraphs
-from .lanczos import _default_basis_dot, _default_dot, _resolve_dot
 from .results import EigResult, acceptance_inner_prod
-from .rows import Rows, _check_dtype, _start_vector
+from .rows import Rows, _check_dtype, _start_vector, default_dot, resolve_dot
 
 __all__ = ["ArnoldiFactorization", "arnoldi", "arnoldi_kernel", "eigs_nonsym"]
 
@@ -69,7 +69,7 @@ class ArnoldiFactorization:
 
 
 def _extend(matvec: Callable, V, B, j0: int, j1: int, breakdown_iter, reorth_passes: int,
-            dot: Callable = _default_dot, basis_dot: Callable = _default_basis_dot):
+            dot: Callable = default_dot, basis_dot: Callable = local_basis_dot):
     """Arnoldi steps j0..j1-1 into V (rows) and B (columns), in place;
     ``dot`` takes the norm of each new direction, ``basis_dot`` the
     Gram-Schmidt coefficients."""
@@ -98,8 +98,8 @@ def arnoldi_kernel(
     *,
     reorth_passes: int = 2,
     compensated: bool = False,
-    dot: Callable = _default_dot,
-    basis_dot: Callable = _default_basis_dot,
+    dot: Callable = default_dot,
+    basis_dot: Callable = local_basis_dot,
 ) -> ArnoldiFactorization:
     """n Arnoldi steps from v0 (need not be normalized), on v0's device.
 
@@ -108,7 +108,7 @@ def arnoldi_kernel(
     norms with ``dot2_rounded`` (``ops/compensated.py``); ``dot`` and
     ``basis_dot`` are a row-sharded run's all-reduced reductions.
     """
-    dot = _resolve_dot(dot, compensated)
+    dot = resolve_dot(dot, compensated)
     m = v0.shape[0]
     V = torch.zeros((n + 1, m), dtype=v0.dtype, device=v0.device)
     V[0] = v0 / torch.sqrt(dot(v0, v0))

@@ -45,9 +45,9 @@ import numpy as np
 import torch
 
 from .._util import to_numpy
+from ..ops.cgs2_kernels import orthogonalize
 from ..ops.operators import LinearOperator
 from .graphs import CycleGraphs
-from .lanczos import _orthogonalize
 from .results import EigResult, acceptance_inner_prod
 from .rows import Rows, _check_dtype, _start_vector
 
@@ -73,17 +73,17 @@ def _cycle(matvec, V, u, sigma, l: int, m: int, dot, basis_dot, reorth_passes: i
     w = w - alphas[0] * u
     if l > 0:
         w = w - sigma @ V[:l]
-    r = _orthogonalize(V[: l + 1], w, basis_dot, reorth_passes)
+    r = orthogonalize(V[: l + 1], w, reorth_passes, basis_dot)
     betas = []
     for j in range(l + 1, m):
         beta = torch.sqrt(dot(r, r))
-        v = _orthogonalize(V[:j], r * _inv(beta), basis_dot, reorth_passes)
+        v = orthogonalize(V[:j], r * _inv(beta), reorth_passes, basis_dot)
         v = v * _inv(torch.sqrt(dot(v, v)))
         V[j] = v
         w = matvec(v)
         alpha = dot(v, w)
         r = w - alpha * v - beta * V[j - 1]
-        r = _orthogonalize(V[: j + 1], r, basis_dot, reorth_passes)
+        r = orthogonalize(V[: j + 1], r, reorth_passes, basis_dot)
         alphas.append(alpha)
         betas.append(beta)
     beta_last = torch.sqrt(dot(r, r))

@@ -11,7 +11,9 @@ behind one interface, so each solver has one copy: the recurrences take
 matrices and acceptance sums go through :meth:`Rows.sum`.  Everything the
 host decides on (convergence, restarts, breakdown) is then computed from
 all-reduced values, the same on every rank, so all ranks take the same
-branches.
+branches.  The unsharded dots are :func:`default_dot` and
+``ops/cgs2_kernels.py:local_basis_dot``; :func:`resolve_dot` swaps in the
+compensated dot.
 
 :func:`_start_vector` draws the global start vector from ``seed`` with a
 ``torch.Generator`` on the CPU; a rank keeps its own rows of it, masked by
@@ -21,12 +23,42 @@ unsharded one does.
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 
 from .._util import as_torch_dtype
-from .lanczos import _default_basis_dot, _default_dot, _resolve_dot
+from ..ops.cgs2_kernels import local_basis_dot
 
 __all__ = ["Rows"]
+
+
+def default_dot(a, b):
+    """The vector-vector dot of an unsharded solve."""
+    return torch.dot(a, b)
+
+
+def resolve_dot(dot, compensated: bool):
+    """Swap the default vector-vector dot for the error-free-transform one
+    (``ops/compensated.py:dot2_rounded``) when ``compensated``.
+
+    Compensation targets the recurrence's reductions (alpha, beta, norms),
+    whose plain float32 rounding floors the Ritz residuals; the
+    reorthogonalization products stay plain (CGS2 corrects itself).  A
+    custom ``dot`` is kept, with a warning.
+    """
+    if not compensated:
+        return dot
+    if dot is default_dot:
+        from ..ops.compensated import dot2_rounded
+
+        return dot2_rounded
+    warnings.warn(
+        "compensated=True has no effect when a custom dot is supplied; "
+        "compensation applies only to the default dot",
+        stacklevel=3,
+    )
+    return dot
 
 
 class Rows:
@@ -38,8 +70,8 @@ class Rows:
         self.mesh = getattr(op, "mesh", None)
         if self.mesh is None:
             self.n = op.shape[0]
-            self.dot = _resolve_dot(_default_dot, compensated)
-            self.basis_dot = _default_basis_dot
+            self.dot = resolve_dot(default_dot, compensated)
+            self.basis_dot = local_basis_dot
         else:
             self.n = op.local_rows
             self.dot = self.mesh.dot2_rounded if compensated else self.mesh.dot

@@ -40,8 +40,7 @@ import torch
 from .._util import to_numpy
 from ..ops.operators import LinearOperator
 from .arnoldi import _check_dtype
-from .rows import _unsharded
-from .lanczos import _default_dot, _resolve_dot
+from .rows import _unsharded, default_dot, resolve_dot
 from .results import EigResult, acceptance_inner_prod
 
 __all__ = [
@@ -114,7 +113,7 @@ def two_sided_lanczos_kernel(
 
     ``compensated=True`` runs the scalar reductions (w, alpha, norms)
     through ``dot2_rounded`` (``ops/compensated.py``)."""
-    dot = _resolve_dot(_default_dot, compensated)
+    dot = resolve_dot(default_dot, compensated)
     m = v0.shape[0]
     dtype, device = v0.dtype, v0.device
     if breakdown_tol is None:

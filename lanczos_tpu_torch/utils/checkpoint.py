@@ -30,8 +30,8 @@ import torch
 from .._util import to_numpy
 from ..ops.operators import LinearOperator
 from ..solver.arnoldi import _check_dtype, _start_vector
-from ..solver.rows import _unsharded
-from ..solver.lanczos import LanczosFactorization, _resolve_dot, _default_dot, lanczos_segment
+from ..solver.rows import _unsharded, default_dot, resolve_dot
+from ..solver.lanczos import LanczosFactorization, lanczos_segment
 
 __all__ = [
     "save_state",
@@ -151,7 +151,7 @@ def lanczos_checkpointed(
         V = torch.zeros((n, m), dtype=dtype, device=dev)
         V[0] = v0
         w = op.matvec(v0)
-        a0 = _resolve_dot(_default_dot, compensated)(w, v0)
+        a0 = resolve_dot(default_dot, compensated)(w, v0)
         r = w - a0 * v0
         alpha = torch.zeros(n, dtype=dtype, device=dev)
         alpha[0] = a0

@@ -28,7 +28,7 @@ from lanczos_tpu.solver.lanczos import lanczos_kernel as jax_lanczos_kernel  # n
 import lanczos_tpu_torch as pt  # noqa: E402
 from lanczos_tpu_torch._util import COUNTERS  # noqa: E402
 from lanczos_tpu_torch.ops import cgs2_kernels  # noqa: E402
-from lanczos_tpu_torch.solver.lanczos import _default_basis_dot, _orthogonalize  # noqa: E402
+from lanczos_tpu_torch.ops.cgs2_kernels import local_basis_dot, orthogonalize  # noqa: E402
 
 SOURCE = Path(pt.__file__).resolve().parent / "csrc" / "cgs2.cu"
 K = {name: int(value) for name, value in
@@ -47,7 +47,7 @@ def test_cpu_tensors_run_the_plain_path_and_count_the_call(passes):
     V = _basis(12, 200)
     v = torch.from_numpy(np.random.default_rng(1).standard_normal(200))
     calls, fused = COUNTERS["lt.cgs2.calls"], COUNTERS["lt.cgs2.fused"]
-    got = _orthogonalize(V, v, _default_basis_dot, passes)
+    got = orthogonalize(V, v, passes, local_basis_dot)
     assert COUNTERS["lt.cgs2.calls"] - calls == 1 and COUNTERS["lt.cgs2.fused"] == fused
     want = v
     for _ in range(passes):
@@ -57,7 +57,7 @@ def test_cpu_tensors_run_the_plain_path_and_count_the_call(passes):
     # A custom basis_dot (a mesh's, say) takes the loop with it.
     seen = []
     mesh_dot = lambda A, x: seen.append(1) or A @ x  # noqa: E731
-    assert torch.equal(_orthogonalize(V, v, mesh_dot, passes), want)
+    assert torch.equal(orthogonalize(V, v, passes, mesh_dot), want)
     assert len(seen) == passes
     assert COUNTERS["lt.cgs2.calls"] - calls == 2 and COUNTERS["lt.cgs2.fused"] == fused
 
@@ -73,7 +73,7 @@ def test_plain_path_matches_jax_cgs2_on_a_stencil_basis(passes):
     V = np.array(fac.V)
     w = np.array(H.matvec(jnp.asarray(V[-1])))
     want = np.asarray(jax_orthogonalize(jnp.asarray(V), jnp.asarray(w), jax_basis_dot, passes))
-    got = _orthogonalize(torch.from_numpy(V), torch.from_numpy(w), _default_basis_dot, passes)
+    got = orthogonalize(torch.from_numpy(V), torch.from_numpy(w), passes, local_basis_dot)
     scale = float(np.abs(w).max())
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12 * scale)
     assert float(np.abs(V @ got.numpy()).max()) < 1e-12 * scale

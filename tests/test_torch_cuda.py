@@ -424,24 +424,24 @@ def test_cuda_cgs2_odd_shapes_match_the_loop(dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cuda_cgs2_captured_equals_eager(cgs2_bases, dtype):
-    """_orthogonalize captured in a CUDA graph replays the kernel bitwise as
+    """orthogonalize captured in a CUDA graph replays the kernel bitwise as
     its eager call; the counters count the capture, not the replays."""
-    from lanczos_tpu_torch.solver.lanczos import _default_basis_dot, _orthogonalize
+    from lanczos_tpu_torch.ops.cgs2_kernels import local_basis_dot, orthogonalize
 
     V64, V32 = cgs2_bases[280_000]
     V = (V64 if dtype == torch.float64 else V32)[:200]
     v = _cgs2_input(V64, 200, dtype, seed=7)
     fused = COUNTERS["lt.cgs2.fused"]
-    eager = _orthogonalize(V, v, _default_basis_dot, 2)
+    eager = orthogonalize(V, v, 2, local_basis_dot)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        _orthogonalize(V, v, _default_basis_dot, 2)
+        orthogonalize(V, v, 2, local_basis_dot)
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        captured = _orthogonalize(V, v, _default_basis_dot, 2)
+        captured = orthogonalize(V, v, 2, local_basis_dot)
     for _ in range(3):
         graph.replay()
     torch.cuda.synchronize()
@@ -453,10 +453,10 @@ def test_cuda_cgs2_captured_equals_eager(cgs2_bases, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cuda_cgs2_beyond_one_tile_runs_row_blocks(dtype):
     """More rows than one tile holds run the kernel in row blocks (two
-    sweeps a pass), through _orthogonalize as any other j, and so do views
+    sweeps a pass), through orthogonalize as any other j, and so do views
     that are not contiguous (a column slice, a transposed store, a strided
     v: copied first); each against the plain loop as above."""
-    from lanczos_tpu_torch.solver.lanczos import _default_basis_dot, _orthogonalize
+    from lanczos_tpu_torch.ops.cgs2_kernels import local_basis_dot, orthogonalize
 
     _require_card()
     eps = torch.finfo(dtype).eps
@@ -476,13 +476,13 @@ def test_cuda_cgs2_beyond_one_tile_runs_row_blocks(dtype):
         calls, fused = COUNTERS["lt.cgs2.calls"], COUNTERS["lt.cgs2.fused"]
         for passes in (1, 2):
             want = ck.cgs2_reference(V, v, passes)
-            got = _orthogonalize(V, v, _default_basis_dot, passes)
+            got = orthogonalize(V, v, passes, local_basis_dot)
             torch.cuda.synchronize()
             assert torch.equal(got, ck.cgs2(V, v, passes)), (label, passes)
             err, scale = float((got - want).abs().max()), float(v.abs().max())
             assert err <= 8 * eps * j**0.5 * scale, (label, passes, err, scale)
         assert COUNTERS["lt.cgs2.calls"] - calls == 2
-        assert COUNTERS["lt.cgs2.fused"] - fused == 4  # two through _orthogonalize, two direct
+        assert COUNTERS["lt.cgs2.fused"] - fused == 4  # two through orthogonalize, two direct
     with pytest.raises(TypeError):  # no kernel for other dtypes
         ck.cgs2(V.half(), v.half(), 2)
 

@@ -1,4 +1,4 @@
-"""The lagged Lanczos recurrence (``solver/lanczos.py:_lagged_steps``) on
+"""The lagged Lanczos recurrence (``solver/lanczos.py:_lagged_row``) on
 the CPU: its tridiagonal T against the plain recurrence's, its alpha
 correction, segments split anywhere, the paths that keep the plain
 recurrence, and the counters.

@@ -1,9 +1,11 @@
 """Port's Lanczos solver against lanczos_tpu and scipy, on the same inputs."""
 
+import ast
 import importlib
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import jax  # noqa: F401  (kept on the CPU by conftest)
 import numpy as np
@@ -33,7 +35,7 @@ def _deuteron(n):
 # rounding differences grow once orthogonality is lost, so those runs stop
 # before that happens on this operator.
 # The port's full runs take the lagged recurrence (solver/lanczos.py:
-# _lagged_steps) at 2 and 3 passes; the JAX package's the plain one.
+# _lagged_row) at 2 and 3 passes; the JAX package's the plain one.
 @pytest.mark.parametrize(
     "reorth,n,tol,passes",
     [pytest.param("full", 40, 1e-10, 2, id="full-40-1e-10"),
@@ -173,3 +175,44 @@ def test_port_never_imports_jax():
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     )
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def _imports(path: Path, package: str):
+    """(module, name) for each name imported by the module at ``path`` of
+    ``package``, relative imports resolved (``from . import x`` gives
+    (package, x) and (package.x, "*"))."""
+    out = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            out += [(a.name, "*") for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = package.rsplit(".", node.level - 1)[0] if node.level else ""
+            module = ".".join(p for p in (base, node.module) if p)
+            out += [(module, a.name) for a in node.names]
+            if node.module is None:
+                out += [(f"{module}.{a.name}", "*") for a in node.names]
+    return out
+
+
+def test_cgs2_choice_and_reductions_each_have_one_home():
+    """How a step orthogonalizes against the basis is decided in
+    ops/cgs2_kernels.py and the reductions live in solver/rows.py: no module
+    of the port imports an underscore name from solver/lanczos.py, rows.py
+    imports nothing from it, ops/ imports nothing from solver/, and only
+    cgs2_kernels.py names MAX_ROWS or an lt.cgs2.* counter."""
+    root = Path(pt.__file__).resolve().parent
+    lanczos_mod = "lanczos_tpu_torch.solver.lanczos"
+    files = sorted(root.rglob("*.py"))
+    assert len(files) > 40
+    for path in files:
+        rel = path.relative_to(root)
+        package = ".".join(("lanczos_tpu_torch", *rel.parts[:-1]))
+        for module, name in _imports(path, package):
+            assert not (module == lanczos_mod and name.startswith("_")), (str(rel), name)
+            if rel.as_posix() == "solver/rows.py":
+                assert module != lanczos_mod, str(rel)
+            if rel.parts[0] == "ops":
+                assert not module.startswith("lanczos_tpu_torch.solver"), (str(rel), module)
+        if rel.as_posix() != "ops/cgs2_kernels.py":
+            text = path.read_text()
+            assert "lt.cgs2." not in text and "MAX_ROWS" not in text, str(rel)
