@@ -7,8 +7,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. The card: ``nvidia-smi`` name and power limit, torch/CUDA versions, TF32 flags.
 2. Build: every kernel library from ``lanczos_tpu_torch/csrc`` for sm_90a
-   (``stencil.cu``, ``interface.cu``, ``cgs2.cu``; one nvcc each, started
-   together), with nvcc's ``-Xptxas -v`` report.
+   (``stencil.cu``, ``interface.cu``, ``cgs2.cu``, ``ritz.cu``; one nvcc
+   each, started together), with nvcc's ``-Xptxas -v`` report.
 3. Each stencil kernel against its plain PyTorch version, on the same CUDA
    tensors, in fp32 and fp64, at the test shapes, the level grids of the
    N=60 and N=120 lattices (20^3, 30^3, 40^3, 60^3), two odd grids and the
@@ -24,7 +24,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    CGS2 kernel against its plain version (two cuBLAS GEMVs a pass) at the
    flagship's M: j = 200 and 399 in fp32 and fp64, j = 1000 (row blocks)
    in fp32, two passes, within 8 eps sqrt(j), with graph-replay times
-   beside the bound of the bytes each must read.
+   beside the bound of the bytes each must read.  The flagship's Ritz
+   vectors: one launch of the rotation kernel for the 20 selected pairs;
+   then the kernel against fp64 V^T W[:, cols] at M = 4,096,000, n = 400,
+   k = 20 (fp32, fp64) and k = 24, its widest (fp32), timed beside cuBLAS's
+   V^T W[:, cols] and (fp32) the full V^T W it replaced.
 
 The irregular multi-resolution lattice (the reference's ``Irr3Ddeuteron.py``):
 
@@ -644,6 +648,79 @@ def phase_cgs2():
                 plain_ms=at["plain_ms"], bound_ms=at["bound_ms"], bound_by="bytes", cases=cases)
 
 
+def phase_ritz():
+    """The Ritz rotation kernel (``ops/ritz_kernels.py:rotate``) at the
+    flagship's M = 4,096,000 and n = 400, on k columns of an orthogonal W
+    chosen unsorted from its 400: k = 20 in fp32 and fp64, k = K_MAX (24)
+    and K_MAX + 1 (two chunks of columns) in fp32, and in fp32 every column
+    (cols=None, 17 chunks, what ritz_from_factorization asks for).
+    Each entry within n eps (|V|^T |W[:, cols]|) of fp64 V^T W[:, cols]
+    (the rounding bound of an n-term sum, tests/test_torch_cuda.py's), one
+    launch per chunk, bitwise repeatable, timed as graph replays (median)
+    beside cuBLAS's V^T W[:, cols] (with its gather of W's columns); bounds:
+    (n + k) M elements read and written at 3.35 TB/s, or 2 n k M flops at
+    the dtype's peak.
+    Returns the fields of the kernels JSON line."""
+    from lanczos_tpu_torch._util import COUNTERS
+    from lanczos_tpu_torch.ops import ritz_kernels as rk
+    from lanczos_tpu_torch.utils.timing import graph_ms
+
+    m, n = 4_096_000, 400
+    print(f"== Ritz rotation V^T W[:, cols] at M = {m}, n = {n} (graph: replays of 5 calls, "
+          f"median of 10; every column 2 calls, median of 5)")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cases = {}
+    for dtype, widths in ((torch.float32, (20, rk.K_MAX, rk.K_MAX + 1, None)),
+                          (torch.float64, (20,))):
+        eps = torch.finfo(dtype).eps
+        peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_FP64_FLOPS
+        V = torch.randn(n, m, generator=gen, dtype=dtype, device="cuda") / m**0.5
+        W = torch.linalg.qr(torch.randn(n, n, generator=gen, dtype=torch.float64,
+                                        device="cuda")).Q.to(dtype)
+        for k in widths:
+            if k is None:
+                cols, arg, label, reps = torch.arange(n, device="cuda"), None, "full", (2, 5)
+            else:
+                cols = torch.randperm(n, generator=gen, device="cuda")[:k]
+                arg, label, reps = cols, f"k={k}", (5, 10)
+            label = f"{str(dtype)[6:]} {label}"
+            before = COUNTERS["lt.ritz.launches"]
+            got = rk.rotate(V, W, arg)
+            torch.cuda.synchronize()
+            launched = COUNTERS["lt.ritz.launches"] - before
+            check(launched == 1, f"rotate {label} launched {launched} kernels, expected 1")
+            check(torch.equal(got, rk.rotate(V, W, arg)), f"rotate {label}: not bitwise repeatable")
+            err, slack = 0.0, -float("inf")
+            for c in range(0, len(cols), 100):  # column blocks: the fp64 copies fit
+                Wc = W[:, cols[c:c + 100]].double()
+                diff = (got[:, c:c + 100].double() - V.double().T @ Wc).abs()
+                slack = max(slack, float((diff - n * eps * (V.double().abs().T @ Wc.abs())).max()))
+                err = max(err, float(diff.max()))
+                del diff, Wc
+            del got
+            ms, samples = graph_ms(lambda: rk.rotate(V, W, arg), launches=reps[0],
+                                   samples=reps[1])
+            lib = (lambda: V.T @ W) if arg is None else (lambda: V.T @ W[:, cols])
+            lib_ms, lib_samples = graph_ms(lib, launches=reps[0], samples=reps[1])
+            bound_ms, bound_by = bound((n + len(cols)) * m * V.element_size(),
+                                       2 * n * len(cols) * m, peak)
+            print(f"  {label:13s} max abs err {err:.3e} (bound - err >= {-slack:.3e}); "
+                  f"{-(-len(cols) // rk.chunk_width(len(cols)))} chunk(s); graph {ms:.4f} ms, {bound_ms / ms:.1%} of its bound "
+                  f"{bound_ms:.4f} ms ({bound_by}); cuBLAS {'V^T W' if arg is None else 'V^T W[:, cols]'} "
+                  f"{lib_ms:.4f} ms ({bound_ms / lib_ms:.1%})")
+            print(f"    samples graph {fmt(samples)} cuBLAS {fmt(lib_samples)}")
+            check(slack <= 0, f"rotate {label}: the kernel disagrees with fp64 V^T W[:, cols]")
+            cases[label] = dict(max_abs_err=err, ms=ms, library_ms=lib_ms,
+                                bound_ms=bound_ms, bound_by=bound_by)
+        del V, W
+        torch.cuda.empty_cache()
+    at = cases["float32 k=20"]
+    return dict(max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+                ms=at["ms"], library_ms=at["library_ms"], full_ms=cases["float32 full"]["ms"],
+                full_library_ms=cases["float32 full"]["library_ms"],
+                bound_ms=at["bound_ms"], bound_by=at["bound_by"], cases=cases)
+
+
 def compare_eigs(label, vals, ref_vals, accepted, tol):
     """Print |vals - ref_vals| and fail where an accepted pair exceeds tol."""
     print(f"  {label}: tolerance {tol:.3e} MeV on the pairs the reference accepts")
@@ -694,6 +771,7 @@ def phase_flagship(lt):
         sk.stencil_spmm.launches = 0
         cgs2_before = (COUNTERS["lt.cgs2.calls"], COUNTERS["lt.cgs2.fused"],
                        COUNTERS["lt.cgs2.basis_reads"])
+        ritz_before = (COUNTERS["lt.ritz.launches"], COUNTERS["lt.ritz.columns"])
         t0 = time.perf_counter()
         res = lt.eigsh(H, k=k, n=n, which="SA", v0=v0)
         torch.cuda.synchronize()
@@ -719,8 +797,13 @@ def phase_flagship(lt):
         reads = COUNTERS["lt.cgs2.basis_reads"] - cgs2_before[2]
         check(reads == 2 * (n - 1) + 1,
               f"the solve swept the basis {reads} times, expected {2 * (n - 1) + 1} (lagged)")
+        ritz = (COUNTERS["lt.ritz.launches"] - ritz_before[0],
+                COUNTERS["lt.ritz.columns"] - ritz_before[1])
+        print(f"  Ritz rotation: {ritz[0]} launch(es), {ritz[1]} columns rotated")
+        check(ritz == (1, k), f"the Ritz rotation ran {ritz[0]} kernels for {ritz[1]} columns, "
+                              f"expected 1 for {k}")
         runs[dtype] = dict(vals=vals, res=res, wall=wall, peak=peak, launches=launches,
-                           tol=fp32_tolerance(H))
+                           ritz_launches=ritz[0], tol=fp32_tolerance(H))
         del H, res
         torch.cuda.empty_cache()
     ref = runs[torch.float64]
@@ -3037,6 +3120,7 @@ def main():
     phase_golden(lt)
     flagship = phase_flagship(lt)
     cgs2 = phase_cgs2()
+    ritz = phase_ritz()
     print(f"== regular path done at {time.perf_counter() - t_start:.1f} s")
 
     print("== irregular lattices")
@@ -3131,6 +3215,11 @@ def main():
         replaces="no TPU kernel: the JAX package's CGS2 (lanczos_tpu/solver/lanczos.py:"
                  "_orthogonalize) is plain matmuls",
         launches=flagship["launches"][2], **cgs2))
+    kernels.append(dict(
+        name="ritz_rotate", route="cuda", source="lanczos_tpu_torch/csrc/ritz.cu",
+        replaces="no TPU kernel: the JAX package rotates every Ritz vector with one matmul "
+                 "(lanczos_tpu/solver/tridiag.py:ritz_from_factorization)",
+        launches=flagship["ritz_launches"], **ritz))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

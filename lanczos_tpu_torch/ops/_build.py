@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each source of ``csrc/`` (``stencil.cu``, ``interface.cu``, ``cgs2.cu``)
+Each source of ``csrc/`` (``stencil.cu``, ``interface.cu``, ``cgs2.cu``,
+``ritz.cu``)
 is compiled with ``nvcc`` for ``sm_90a`` into its own shared library with a
 plain C interface and loaded with :mod:`ctypes` (no PyTorch headers, so a build
 takes seconds).  The build happens at first use, from the sources in this
@@ -32,7 +33,7 @@ import torch
 
 __all__ = [
     "BuildInfo", "nvcc_path", "load_stencil_library", "load_interface_library",
-    "load_cgs2_library", "build_all", "launch_on",
+    "load_cgs2_library", "load_ritz_library", "build_all", "launch_on",
 ]
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
@@ -164,13 +165,30 @@ def load_cgs2_library():
     return lib, info
 
 
+@functools.lru_cache(maxsize=None)
+def load_ritz_library():
+    """(ctypes library, BuildInfo) for ``csrc/ritz.cu``."""
+    info = _build(_CSRC / "ritz.cu", "ritz")
+    lib = ctypes.CDLL(str(info.path))
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for dt in ("f32", "f64"):
+        fn = getattr(lib, f"ritz_rotate_{dt}")
+        # V, W, cols, X, M, n, W's row and column strides, ncols, k, the
+        # chunk's width, stream
+        fn.argtypes = [ptr] * 4 + [i64, i32, i64, i64, i32, i32, i32, ptr]
+        fn.restype = i32
+    lib.ritz_max_cols.argtypes = []
+    lib.ritz_max_cols.restype = i32
+    return lib, info
+
+
 def build_all():
     """Build every kernel library at once, one nvcc per source started
     together; returns {name: BuildInfo}."""
     from concurrent.futures import ThreadPoolExecutor
 
     loaders = {"stencil": load_stencil_library, "interface": load_interface_library,
-               "cgs2": load_cgs2_library}
+               "cgs2": load_cgs2_library, "ritz": load_ritz_library}
     with ThreadPoolExecutor(len(loaders)) as pool:
         futures = {name: pool.submit(fn) for name, fn in loaders.items()}
         return {name: f.result()[1] for name, f in futures.items()}

@@ -14,7 +14,7 @@ from .._util import COUNTERS, span, to_numpy
 from ..ops.operators import as_operator
 from .lanczos import lanczos
 from .results import EigResult, acceptance_inner_prod
-from .tridiag import cullum_willoughby_mask, ritz_from_factorization
+from .tridiag import cullum_willoughby_mask, ritz_values, ritz_vectors
 
 __all__ = ["eigsh"]
 
@@ -92,7 +92,8 @@ def eigsh(
             op, n, seed=seed, v0=v0, reorth=reorth, reorth_passes=reorth_passes,
             reorth_period=reorth_period, dtype=dtype, compensated=compensated,
         )
-        theta, X, resid_est = ritz_from_factorization(fac)
+        # Select from the Ritz values, then rotate only the selected pairs.
+        theta, W, resid_est = ritz_values(fac)
         with span("lt.select"):
             theta_np = to_numpy(theta)
             keep = (_ghost_mask(fac, theta_np, resid_est) if ghost_filter
@@ -102,8 +103,8 @@ def eigsh(
                 kept_idx[_select(theta_np[kept_idx], which, k)], device=theta.device
             )
             eigenvalues = theta[sel]
-            eigenvectors = X[:, sel]
             residuals = resid_est[sel]
+        eigenvectors = ritz_vectors(fac, W, sel)
         if compute_acceptance:
             with span("lt.acceptance"):
                 inner = acceptance_inner_prod(op, eigenvectors)

@@ -2,7 +2,9 @@
 
 Counterpart of ``lanczos_tpu/solver/tridiag.py``: ``torch.linalg.eigh`` of
 the dense (n, n) tridiagonal on the factorization's device, and the Ritz
-back-transform as one (M, n) x (n, n) product.
+back-transform of the columns a caller names (``ops/ritz_kernels.py``: on
+the card a kernel that reads the basis once, in chunks of ``K_MAX``
+columns past that).
 """
 
 from __future__ import annotations
@@ -12,12 +14,15 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .._util import span
+from .._util import COUNTERS, span
+from ..ops.ritz_kernels import rotate
 
 __all__ = [
     "tridiag_to_dense",
     "tridiag_eigh",
     "ritz_from_factorization",
+    "ritz_values",
+    "ritz_vectors",
     "cullum_willoughby_mask",
 ]
 
@@ -41,12 +46,14 @@ def tridiag_eigh(alpha: torch.Tensor, beta: torch.Tensor):
     return theta.to(alpha.dtype), W.to(alpha.dtype)
 
 
-def ritz_from_factorization(fac) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Ritz values/vectors and residual-norm estimates from a Lanczos run.
+def ritz_values(fac) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Ritz values, the eigenvectors of T and residual-norm estimates from a
+    Lanczos run, without the (M, n) Ritz vectors.
 
-    Returns (theta, X, resid_est):
+    Returns (theta, W, resid_est):
       theta     (n,)   Ritz values, ascending.
-      X         (M, n) Ritz vectors, columns: X = V.T @ W.
+      W         (n, n) eigenvectors of T, columns: Ritz vector i is V.T @ W[:, i]
+                       (:func:`ritz_vectors`).
       resid_est (n,)   ||A x_i - theta_i x_i|| estimated as beta_n * |W[n-1, i]|
                        (the classical Lanczos bound, no extra matvec;
                        beta_n = ||resid|| of the factorization).
@@ -54,10 +61,32 @@ def ritz_from_factorization(fac) -> Tuple[torch.Tensor, torch.Tensor, torch.Tens
     with span("lt.ritz"):
         with span("lt.ritz.eigh"):
             theta, W = tridiag_eigh(fac.alpha, fac.beta)
-        with span("lt.ritz.rotate"):
-            X = fac.V.T @ W
-            beta_n = torch.sqrt(torch.dot(fac.resid, fac.resid))
-            return theta, X, beta_n * W[-1, :].abs()
+        beta_n = torch.sqrt(torch.dot(fac.resid, fac.resid))
+        return theta, W, beta_n * W[-1, :].abs()
+
+
+def ritz_vectors(fac, W: torch.Tensor, cols=None) -> torch.Tensor:
+    """The Ritz vectors ``V.T @ W[:, cols]`` (M, len(cols)), contiguous, in
+    ``cols``' order (``cols=None``: every column, ``V.T @ W``), under the
+    span ``lt.ritz.rotate``; adds their number to
+    ``COUNTERS["lt.ritz.columns"]``."""
+    with span("lt.ritz.rotate"):
+        X = rotate(fac.V, W, cols)
+        COUNTERS["lt.ritz.columns"] += X.shape[1]
+        return X
+
+
+def ritz_from_factorization(fac) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Ritz values/vectors and residual-norm estimates from a Lanczos run:
+    :func:`ritz_values`, then :func:`ritz_vectors` of every column.
+
+    Returns (theta, X, resid_est):
+      theta     (n,)   Ritz values, ascending.
+      X         (M, n) Ritz vectors, columns: X = V.T @ W.
+      resid_est (n,)   as :func:`ritz_values` gives it.
+    """
+    theta, W, resid_est = ritz_values(fac)
+    return theta, ritz_vectors(fac, W), resid_est
 
 
 def cullum_willoughby_mask(

@@ -24,6 +24,11 @@ work per call outlasts the kernels):
   row to finish (two sweeps), where the package has them, and the plain
   loop (two cuBLAS GEMVs a pass) in either tree (these cases alone also
   in fp64);
+* the Ritz rotation of the regular cell's 20 selected pairs, V^T W[:, cols]
+  at M = 4,096,000 and n = 400 in fp32 and fp64:
+  ``ops/ritz_kernels.py:rotate`` where the package has it, cuBLAS's
+  ``V.T @ W[:, cols]``, and (fp32) the full ``V.T @ W``, by cuBLAS in
+  either tree and by the kernel's 17 chunks where the package has it;
 * the launch floor: a one-element ``fill_`` replayed the same way.
 
 Prints one line per case and, last, one JSON object of them all.
@@ -144,6 +149,30 @@ def main():
                      launches=5, eager_launches=10)
             case(f"cgs2 loop {tag}", lambda j=j: loop(V[:j], v), launches=5, eager_launches=10)
         del V, v
+        torch.cuda.empty_cache()
+
+    try:
+        from lanczos_tpu_torch.ops import ritz_kernels as rk
+    except ImportError:  # a tree from before the kernel
+        rk = None
+    n, k = 400, 20
+    for dtype in (torch.float32, torch.float64):
+        tag = f"{str(dtype)[6:]} n={n}"
+        V = torch.randn(n, m, generator=gen, device="cuda", dtype=dtype) / m**0.5
+        W = torch.linalg.qr(torch.randn(n, n, generator=gen, device="cuda",
+                                        dtype=torch.float64)).Q.to(dtype)
+        cols = torch.randperm(n, generator=gen, device="cuda")[:k]
+        if rk is not None:
+            case(f"ritz rotate {tag} k={k}", lambda: rk.rotate(V, W, cols), launches=5,
+                 eager_launches=10)
+        case(f"ritz cuBLAS V.T@W[:,sel] {tag} k={k}", lambda: V.T @ W[:, cols], launches=5,
+             eager_launches=10)
+        if dtype == torch.float32:
+            if rk is not None:
+                case(f"ritz rotate full {tag}", lambda: rk.rotate(V, W), launches=2,
+                     eager_launches=2)
+            case(f"ritz cuBLAS full V.T@W {tag}", lambda: V.T @ W, launches=2, eager_launches=2)
+        del V, W
         torch.cuda.empty_cache()
     print(json.dumps(out))
 

@@ -1,5 +1,5 @@
-"""Card-only tests of the port: the CUDA stencil, interface and CGS2
-kernels, a CompositeV2 on the card, and small solves.
+"""Card-only tests of the port: the CUDA stencil, interface, CGS2 and Ritz
+rotation kernels, a CompositeV2 on the card, and small solves.
 
 They need an NVIDIA GPU and skip here otherwise (decided inside each test,
 so every pytest-xdist worker collects the same tests).  On a card:
@@ -24,6 +24,7 @@ from lanczos_tpu_torch._util import COUNTERS  # noqa: E402
 from lanczos_tpu_torch.ops import make_stencil_operator  # noqa: E402
 from lanczos_tpu_torch.ops import cgs2_kernels as ck  # noqa: E402
 from lanczos_tpu_torch.ops import interface_kernel as ik  # noqa: E402
+from lanczos_tpu_torch.ops import ritz_kernels as rk  # noqa: E402
 from lanczos_tpu_torch.ops import stencil_kernels as sk  # noqa: E402
 
 EPS32 = float(np.finfo(np.float32).eps)
@@ -746,3 +747,129 @@ def test_cuda_restarted_solves_match_cpu_fp64(dtype):
             j = int(np.argmin(np.abs(ref_vals - vals[i])))
             limit = max(10 * ref_resid[j], 10 * eps * norm, kw["tol"] * max(abs(vals[i]), 1.0))
             assert r <= limit, (solve, dtype, vals, resid, ref_resid)
+
+
+def _ritz_case(m, n, dtype, seed, offset=0, column_major=False):
+    """V (n, m) of Lanczos-basis scale, ``offset`` elements into its buffer,
+    and an orthogonal W (n, n) in ``dtype``: row-major, or column-major as
+    torch.linalg.eigh returns it."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    buf = torch.randn(n * m + offset, generator=gen, dtype=dtype, device="cuda") / m**0.5
+    V = buf[offset:].view(n, m)
+    W = torch.linalg.qr(torch.randn(n, n, generator=gen, dtype=torch.float64,
+                                    device="cuda")).Q
+    W = (W.T.contiguous().T if column_major else W.contiguous()).to(dtype)
+    return V, W
+
+
+def _assert_rotation(V, W, cols, got):
+    """got against V^T W[:, cols] in fp64, entry by entry within the
+    rounding bound of an n-term fp sum, n eps (|V|^T |W[:, cols]|)."""
+    n = V.shape[0]
+    eps = torch.finfo(V.dtype).eps
+    Wc = W[:, cols].double()
+    want = V.double().T @ Wc
+    bound = n * eps * (V.double().abs().T @ Wc.abs())
+    assert got.shape == want.shape and got.is_contiguous() and got.dtype == V.dtype
+    excess = float(((got.double() - want).abs() - bound).max())
+    assert excess <= 0, excess
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_ritz_rotate_matches_fp64(dtype):
+    """The rotation kernel against fp64 V^T W[:, cols]: M that is no
+    multiple of a block's 256 x 16 bytes (and one that is no multiple of 16
+    bytes, on a V one element into its buffer: element copies), n = 1, 7
+    and 400 (W staged in two parts at k = K_MAX), k = 1, 20, K_MAX, K_MAX +
+    1 and 2 K_MAX + 1 (two and three chunks of columns, element stores
+    where k is odd) and every column (cols=None: 17 chunks at n = 400),
+    unsorted columns with gaps, W row- and column-major; one launch a call,
+    bitwise the same from call to call."""
+    _require_card()
+    assert rk._library().ritz_max_cols() == rk.K_MAX
+    gen = torch.Generator().manual_seed(3)
+    for m, offset in ((65_540, 0), (100_003, 1)):
+        for n in (1, 7, 400):
+            V, W = _ritz_case(m, n, dtype, seed=n, offset=offset, column_major=n == 400)
+            for k in (1, 20, rk.K_MAX, rk.K_MAX + 1, 2 * rk.K_MAX + 1, None):
+                if k is None:
+                    cols, arg = torch.arange(n), None
+                else:
+                    cols = torch.randperm(max(n, k), generator=gen)[:k] % n
+                    if n > 2 * k:
+                        cols = cols // 2 * 2  # gaps: even columns only
+                    arg = cols.to("cuda")
+                before = COUNTERS["lt.ritz.launches"]
+                got = rk.rotate(V, W, arg)
+                again = rk.rotate(V, W, arg)
+                torch.cuda.synchronize()
+                launches = COUNTERS["lt.ritz.launches"] - before
+                assert launches == 2, (m, n, k, launches)
+                assert torch.equal(got, again), (m, n, k)
+                _assert_rotation(V, W, cols, got)
+            del V, W
+
+
+@pytest.mark.cuda
+def test_cuda_ritz_rotate_launches_the_kernel_for_any_layout():
+    """On the card every rotation runs the kernel: a V that is not
+    contiguous is copied and rotated by it, bitwise as its contiguous copy;
+    another dtype, or a W of another dtype, raises TypeError, a W on
+    another device ValueError.  An index past W's columns given on the host
+    raises, one given on the card gives a column of NaN."""
+    _require_card()
+    V, W = _ritz_case(4096, 16, torch.float32, seed=1)
+    cols = torch.tensor([3, 0, 9], device="cuda")
+    strided = V.T.contiguous().T
+    assert not strided.is_contiguous()
+    before = COUNTERS["lt.ritz.launches"]
+    got = rk.rotate(strided, W, cols)
+    assert COUNTERS["lt.ritz.launches"] - before == 1
+    assert torch.equal(got, rk.rotate(V, W, cols))
+    _assert_rotation(V, W, cols.cpu(), got)
+    for v, w in ((V.bfloat16(), W.bfloat16()), (V, W.double())):
+        with pytest.raises(TypeError):
+            rk.rotate(v, w, cols)
+    with pytest.raises(ValueError):
+        rk.rotate(V, W.cpu(), cols)
+    with pytest.raises(IndexError):
+        rk.rotate(V, W, torch.tensor([0, 16]))
+    got = rk.rotate(V, W, torch.tensor([16, 2], device="cuda"))
+    assert bool(got[:, 0].isnan().all()) and bool(got[:, 1].isfinite().all())
+
+
+@pytest.mark.cuda
+def test_cuda_flagship_eigenvectors_equal_the_full_rotation():
+    """eigsh on the N=160^3 cell's problem (k=20, n=400, fp32) rotates only
+    the 20 selected pairs, on the kernel, and its eigenvectors are the
+    selected columns of the full V^T W within the rounding bound of 400-term
+    fp32 sums (each computed with another summation order)."""
+    _require_card()
+    from lanczos_tpu_torch.solver import api
+
+    H = pt.build_regular_hamiltonian(160, 25.0, pt.deuteron_potential_3d, stencil="27",
+                                     dtype=torch.float32, device="cuda")
+    seen = {}
+    real = api.ritz_vectors
+
+    def spy(fac, W, cols=None):
+        seen.update(fac=fac, W=W, cols=cols)
+        return real(fac, W, cols)
+
+    api.ritz_vectors = spy
+    try:
+        launches, columns = COUNTERS["lt.ritz.launches"], COUNTERS["lt.ritz.columns"]
+        res = pt.eigsh(H, k=20, n=400, which="SA", v0=np.random.default_rng(99).uniform(
+            -1.0, 1.0, 160**3))
+        torch.cuda.synchronize()
+    finally:
+        api.ritz_vectors = real
+    assert COUNTERS["lt.ritz.launches"] - launches == 1
+    assert COUNTERS["lt.ritz.columns"] - columns == 20
+    V, W, cols = seen["fac"].V, seen["W"], seen["cols"]
+    full = V.T @ W
+    eps = torch.finfo(torch.float32).eps
+    bound = 2 * 400 * eps * (V.abs().T @ W[:, cols].abs())
+    diff = (res.eigenvectors - full[:, cols]).abs()
+    assert float((diff - bound).max()) <= 0

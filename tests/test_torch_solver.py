@@ -129,6 +129,118 @@ def test_eigsh_matches_jax(reorth):
     assert "EIGENVALUE AND EIGENVECTOR SUMMARY" in rp.summary()
 
 
+def _spy_on_ritz_vectors(monkeypatch):
+    """Record the (fac, W, cols) of eigsh's call of ritz_vectors."""
+    from lanczos_tpu_torch.solver import api
+
+    seen = {}
+    real = api.ritz_vectors
+
+    def spy(fac, W, cols=None):
+        seen.update(fac=fac, W=W, cols=cols)
+        return real(fac, W, cols)
+
+    monkeypatch.setattr(api, "ritz_vectors", spy)
+    return seen
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("reorth,ghost_filter", [("full", False), ("full", True),
+                                                 ("selective", True)])
+@pytest.mark.parametrize("which", ["SA", "LA", "SM", "LM"])
+def test_eigsh_rotates_only_the_selected_pairs(monkeypatch, which, reorth, ghost_filter, dtype):
+    """eigsh selects from the Ritz values and rotates only the k selected
+    pairs: the same pairs, in the same order, as selecting columns of the
+    full rotation; eigenvalues and residuals bitwise, eigenvectors to the
+    rounding of n-term sums."""
+    from lanczos_tpu_torch.solver import api
+
+    P = pt.build_regular_hamiltonian(6, 25.0, pt.deuteron_potential_3d, dtype=dtype,
+                                     device="cpu")
+    k, n = 5, 30
+    seen = _spy_on_ritz_vectors(monkeypatch)
+    v0 = np.random.default_rng(7).uniform(-1, 1, P.shape[0])
+    res = pt.eigsh(P, k=k, n=n, which=which, v0=v0, reorth=reorth, ghost_filter=ghost_filter)
+    fac = seen["fac"]
+    theta, X, resid = pt.ritz_from_factorization(fac)
+    assert X.shape == (P.shape[0], n)
+    theta_np = theta.numpy()
+    keep = api._ghost_mask(fac, theta_np, resid) if ghost_filter else np.ones(n, dtype=bool)
+    kept = np.nonzero(keep)[0]
+    sel = kept[api._select(theta_np[kept], which, k)]
+    assert seen["cols"].tolist() == sel.tolist() and len(sel) == k
+    assert torch.equal(res.eigenvalues, theta[sel])
+    assert torch.equal(res.residuals, resid[sel])
+    assert res.eigenvectors.is_contiguous() and res.eigenvectors.dtype == dtype
+    eps = torch.finfo(dtype).eps
+    bound = n * eps * (fac.V.abs().T @ seen["W"][:, sel].abs())
+    assert bool(((res.eigenvectors - X[:, sel]).abs() <= bound).all())
+
+
+def test_ritz_columns_counter_counts_the_rotated_pairs():
+    """COUNTERS["lt.ritz.columns"] grows by k for an eigsh call and by n for
+    ritz_from_factorization, which still returns all n Ritz vectors."""
+    from lanczos_tpu_torch._util import COUNTERS
+
+    P = pt.build_regular_hamiltonian(6, 25.0, pt.deuteron_potential_3d, dtype=torch.float64,
+                                     device="cpu")
+    v0 = np.random.default_rng(8).uniform(-1, 1, P.shape[0])
+    before = COUNTERS["lt.ritz.columns"]
+    for k in (3, 7):
+        pt.eigsh(P, k=k, n=30, v0=v0)
+    assert COUNTERS["lt.ritz.columns"] - before == 10
+    fac = pt.lanczos(P, 30, v0=v0)
+    before = COUNTERS["lt.ritz.columns"]
+    theta, X, _ = pt.ritz_from_factorization(fac)
+    assert COUNTERS["lt.ritz.columns"] - before == 30
+    assert X.shape == (P.shape[0], 30) and theta.shape == (30,)
+    _, W = pt.tridiag_eigh(fac.alpha, fac.beta)
+    assert torch.equal(X, fac.V.T @ W)
+
+
+def test_ritz_rotate_off_the_card_is_the_plain_product():
+    """ops/ritz_kernels.py:rotate on CPU tensors is V.T @ W[:, cols], any k
+    and any strides of W (V.T @ W for cols=None), and launches nothing;
+    indices given on the host are checked."""
+    from lanczos_tpu_torch._util import COUNTERS
+    from lanczos_tpu_torch.ops import ritz_kernels as rk
+
+    rng = np.random.default_rng(9)
+    V = torch.from_numpy(rng.standard_normal((12, 50)))
+    W = torch.from_numpy(rng.standard_normal((12, 12))).T  # column-major, as eigh gives it
+    launches = COUNTERS["lt.ritz.launches"]
+    for cols in ([4, 0, 11], list(range(12)) * 3, [7]):
+        got = rk.rotate(V, W, cols)
+        assert torch.equal(got, V.T @ W[:, cols]) and got.shape == (50, len(cols))
+    assert torch.equal(rk.rotate(V, W), V.T @ W)
+    assert COUNTERS["lt.ritz.launches"] == launches
+    with pytest.raises(IndexError):
+        rk.rotate(V, W, [0, 12])
+    with pytest.raises(IndexError):
+        rk.rotate(V, W, torch.tensor([-1]))
+    with pytest.raises(ValueError):
+        rk.rotate(V, W, torch.zeros(2, 2, dtype=torch.int64))
+    with pytest.raises(ValueError):
+        rk.rotate(V, W[:5], [0])
+
+
+@pytest.mark.parametrize("k", [1, 3, 20, 24, 25, 47, 48, 49, 400, 1000])
+def test_ritz_rotation_chunks_are_aligned_and_few(k):
+    """The kernel's chunks of columns: one chunk of k up to K_MAX (the
+    source's kMaxCols), so the cell's k = 20 is one pass over V; past it,
+    chunks at most K_MAX wide, as few as K_MAX allows, each starting on a
+    multiple of 4 columns, the last one not empty."""
+    from lanczos_tpu_torch.ops import ritz_kernels as rk
+
+    src = (Path(pt.__file__).parent / "csrc" / "ritz.cu").read_text()
+    assert f"constexpr int kMaxCols = {rk.K_MAX};" in src
+    width = rk.chunk_width(k)
+    chunks = -(-k // width)
+    assert 1 <= width <= rk.K_MAX and chunks == -(-k // rk.K_MAX)
+    assert width == k if k <= rk.K_MAX else width % 4 == 0
+    assert 0 < k - (chunks - 1) * width <= width
+
+
 def test_cpu_oracle_chain():
     """The verify recipe on the port: 1D chain, full Krylov depth, vs scipy."""
     N, L = 1001, 25.0
@@ -165,7 +277,7 @@ def test_port_never_imports_jax():
         "import lanczos_tpu_torch.models.lattice, lanczos_tpu_torch.native\n"
         "import lanczos_tpu_torch.models.irr_hamiltonian, lanczos_tpu_torch.utils.io\n"
         "import lanczos_tpu_torch.solver.block, lanczos_tpu_torch.solver.look_ahead\n"
-        "import lanczos_tpu_torch.utils.bench_impl\n"
+        "import lanczos_tpu_torch.utils.bench_impl, lanczos_tpu_torch.ops.ritz_kernels\n"
         "assert not [m for m in sys.modules if m.startswith('lanczos_tpu.') or m == 'lanczos_tpu']\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "print('ok')\n"
